@@ -1,0 +1,130 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Every source under ``csrc/`` is compiled at first use by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, which
+``ctypes`` loads. A build takes seconds (no PyTorch headers). The
+library's file name carries a hash of the sources and flags, so an edited
+source never loads a stale build; the build writes to a temporary name
+and renames, so two processes racing the same build both end with a
+whole file. A lock serializes the build inside one process (the server's
+executor threads can reach the first launch together).
+
+Each kernel has a :class:`Kernel` counter that its wrapper increments
+where, and only where, it launches the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = [
+    "BUILD_DIR",
+    "FLASH_ATTENTION",
+    "GRID_KNN",
+    "KERNELS",
+    "Kernel",
+    "check",
+    "library",
+]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC / "build"
+SOURCES = ("flash_attention.cu", "grid_knn.cu", "error.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills, into the build log
+)
+
+
+class Kernel:
+    """Launch counter of one hand-written kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        self._lock = threading.Lock()
+
+    def count(self) -> None:
+        with self._lock:
+            self.launches += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+
+
+FLASH_ATTENTION = Kernel("flash_attention")
+GRID_KNN = Kernel("grid_knn")
+KERNELS = (FLASH_ATTENTION, GRID_KNN)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built "
+            "from csrc/ at first use"
+        )
+    return found
+
+
+def _build() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    so = BUILD_DIR / f"libipc_torch_kernels_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ipc_flash_attention.argtypes = [
+        p, p, p, p, i, i, i, i, ctypes.POINTER(ll), ctypes.c_float, i, p,
+    ]
+    lib.ipc_flash_attention.restype = i
+    lib.ipc_grid_knn.argtypes = [p, p, i, i, i, ll, ll, ll, p]
+    lib.ipc_grid_knn.restype = i
+    lib.ipc_cuda_error_string.argtypes = [i]
+    lib.ipc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/`` on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(_build())))
+        return _lib
+
+
+def check(err: int, kernel: Kernel) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        text = library().ipc_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel.name} launch failed: CUDA error {err} ({text})")

@@ -1,0 +1,99 @@
+"""Multi-head attention: the hand-written CUDA flash kernel and its plain
+PyTorch version.
+
+Counterpart of ``image_to_pointcloud_tpu/models/attention.py``. The
+kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+``flash_attention``; :func:`attention_plain` is ``_attention_xla``'s
+math. The choice follows the tensor's device: a CUDA tensor launches the
+kernel (or raises), a CPU tensor takes the plain version. Unlike the JAX
+package there is no minimum sequence length for the kernel: the TPU's
+``flash_min_seq`` gate was a TPU measurement.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from image_to_pointcloud_tpu_torch import cuda
+
+__all__ = ["attention_plain", "flash_attention", "multi_head_attention"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> torch.Tensor:
+    """Materialized attention over (B, H, N, D); returns f32.
+
+    ``_attention_xla``'s math: f32 dots of the input values, logits
+    rounded to the input dtype, softmax statistics in f32, probabilities
+    rounded to the value dtype before the f32-accumulated P·V product.
+    """
+    logits = (
+        torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    ).to(q.dtype).float()
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    probs = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
+    return torch.matmul(probs.float(), v.float())
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> torch.Tensor:
+    """Flash attention over (B, H, N, 64) CUDA tensors, f32 or bf16.
+
+    The head dim must be contiguous; batch, head and sequence strides are
+    free, so head-split views of (B, N, H·64) projections are read in
+    place. The output has the input dtype and shape, laid out as
+    (B, N, H, 64) underneath so merging the heads back is free.
+    """
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention: q, k, v must be on one CUDA device")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: unsupported dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: shapes {q.shape}, {k.shape}, {v.shape}")
+    b, h, n, d = q.shape
+    if d != 64:
+        raise ValueError(f"flash_attention: head dim {d} (the kernel takes 64)")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the head dim must be contiguous")
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        *(t.stride(i) for t in (q, k, v, out) for i in range(3))
+    )
+    lib = cuda.library()
+    with torch.cuda.device(q.device):
+        err = lib.ipc_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, n, d, strides, 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda.check(err, cuda.FLASH_ATTENTION)
+    cuda.FLASH_ATTENTION.count()
+    return out
+
+
+def multi_head_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int
+) -> torch.Tensor:
+    """(B, N, D) projected q/k/v → attention output (B, N, D)."""
+    b, n, dm = q.shape
+    dh = dm // num_heads
+
+    def split(x):
+        return x.reshape(b, n, num_heads, dh).transpose(1, 2)
+
+    qh, kh, vh = split(q), split(k), split(v)
+    if q.device.type == "cuda":
+        o = flash_attention(qh, kh, vh)
+    elif q.device.type == "cpu":
+        o = attention_plain(qh, kh, vh, 1.0 / math.sqrt(dh))
+    else:
+        raise ValueError(f"multi_head_attention: unsupported device {q.device}")
+    return o.transpose(1, 2).reshape(b, n, dm).to(q.dtype)

@@ -1,0 +1,67 @@
+"""Flax parameter tree → the port's ``state_dict``.
+
+The JAX package's DepthAnything parameters, given as a nested dict of
+numpy arrays (e.g. ``jax.tree_util.tree_map(np.asarray, params)``), map
+onto :class:`~image_to_pointcloud_tpu_torch.models.depth_anything.DepthAnything`
+by name, with these layout changes:
+
+* Dense kernel ``(in, out)`` → Linear weight ``(out, in)``,
+* Conv kernel HWIO → Conv2d weight OIHW,
+* ``up0``/``up1`` matmul kernels ``(k, k, in, out)`` → ConvTranspose2d
+  weight ``(in, out, k, k)``,
+* LayerNorm ``scale`` → ``weight``,
+* ``block{i}`` → ``blocks.{i}``; ``patch_embed``/``patch_bias`` → the
+  ``patch_embed`` Linear; ``ls1``/``ls2``, ``cls_token`` and
+  ``pos_embed`` carried across as they are.
+
+It imports no JAX, so it takes plain numpy.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_flax"]
+
+_RENAMES = {
+    ("backbone", "patch_embed"): "backbone.patch_embed.weight",
+    ("backbone", "patch_bias"): "backbone.patch_embed.bias",
+}
+
+
+def _leaves(tree: Mapping, path=()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _leaves(val, path + (key,))
+        else:
+            yield path + (key,), np.asarray(val)
+
+
+def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Nested ``{"backbone": ..., "neck": ...}`` numpy tree → state_dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(params):
+        if path in _RENAMES:
+            name = _RENAMES[path]
+            if path[-1] == "patch_embed":
+                arr = arr.T
+        else:
+            parts = [re.sub(r"^block(\d+)$", r"blocks.\1", p) for p in path]
+            leaf = parts[-1]
+            if leaf == "kernel":
+                parts[-1] = "weight"
+                if arr.ndim == 2:
+                    arr = arr.T
+                elif parts[-2] in ("up0", "up1"):
+                    arr = arr.transpose(2, 3, 0, 1)
+                else:
+                    arr = arr.transpose(3, 2, 0, 1)
+            elif leaf == "scale":
+                parts[-1] = "weight"
+            name = ".".join(parts)
+        sd[name] = torch.tensor(np.asarray(arr, dtype=np.float32))
+    return sd

@@ -1,0 +1,139 @@
+"""The Depth-Anything-V2 family: config, presets, model and its
+deterministic random initialization.
+
+Counterpart of ``image_to_pointcloud_tpu/models/depth_anything.py``
+(DA-V2 presets only; the DPT-classic and ZoeDepth families are not
+ported yet). The model's dtype and device are the torch module's own:
+``.to(device, dtype)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from image_to_pointcloud_tpu_torch.models.dinov2 import DinoV2Backbone, DinoV2Config
+from image_to_pointcloud_tpu_torch.models.dpt import DPTConfig, DPTNeckHead
+
+__all__ = [
+    "IMAGENET_MEAN",
+    "IMAGENET_STD",
+    "PRESETS",
+    "DepthAnything",
+    "DepthAnythingConfig",
+    "init_weights",
+    "preset",
+]
+
+# ImageNet normalization used by the HF processor (backend/app.py:109).
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthAnythingConfig:
+    backbone: DinoV2Config = DinoV2Config()
+    neck: DPTConfig = DPTConfig()
+
+
+def _cfg(
+    hidden: int,
+    layers: int,
+    heads: int,
+    out_layers: Sequence[int],
+    neck_sizes: Sequence[int],
+    fusion: int,
+    *,
+    metric: bool = False,
+    max_depth: float = 20.0,
+) -> DepthAnythingConfig:
+    return DepthAnythingConfig(
+        backbone=DinoV2Config(
+            hidden_size=hidden,
+            num_layers=layers,
+            num_heads=heads,
+            out_layers=tuple(out_layers),
+        ),
+        neck=DPTConfig(
+            hidden_size=hidden,
+            neck_hidden_sizes=tuple(neck_sizes),
+            fusion_hidden_size=fusion,
+            metric_depth=metric,
+            max_depth=max_depth,
+        ),
+    )
+
+
+# DA-V2 intermediate-layer choices: S/B use blocks [2,5,8,11],
+# L uses [4,11,17,23] (0-indexed).
+PRESETS: dict[str, DepthAnythingConfig] = {
+    "depth-anything-v2-small": _cfg(384, 12, 6, (2, 5, 8, 11), (48, 96, 192, 384), 64),
+    "depth-anything-v2-base": _cfg(768, 12, 12, (2, 5, 8, 11), (96, 192, 384, 768), 128),
+    "depth-anything-v2-large": _cfg(1024, 24, 16, (4, 11, 17, 23), (256, 512, 1024, 1024), 256),
+    "depth-anything-v2-metric-small": _cfg(
+        384, 12, 6, (2, 5, 8, 11), (48, 96, 192, 384), 64, metric=True
+    ),
+    "depth-anything-v2-metric-base": _cfg(
+        768, 12, 12, (2, 5, 8, 11), (96, 192, 384, 768), 128, metric=True
+    ),
+}
+# Canonical alias used by the reference API (`model=depth-anything-v2`).
+PRESETS["depth-anything-v2"] = PRESETS["depth-anything-v2-small"]
+
+
+def preset(name: str) -> DepthAnythingConfig:
+    try:
+        return PRESETS[name]
+    except KeyError:
+        raise ValueError(
+            f"Unknown model preset: {name!r}; available: {sorted(PRESETS)}"
+        ) from None
+
+
+class DepthAnything(nn.Module):
+    """(B, H, W, 3) normalized pixels → (B, H, W) float32 relative inverse
+    depth (or metric depth)."""
+
+    def __init__(self, cfg: DepthAnythingConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = DinoV2Backbone(cfg.backbone)
+        self.neck = DPTNeckHead(cfg.neck)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        return self.neck(self.backbone(pixels)).float()
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    # Flax's lecun_normal: a normal truncated at ±2σ, rescaled so the
+    # variance is 1/fan_in.
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_weights(model: DepthAnything, gen: torch.Generator) -> DepthAnything:
+    """Deterministic random init with the JAX model's initializer
+    distributions (Flax defaults; the numbers differ, the statistics do
+    not): lecun-normal matmul/conv weights, zero biases, unit LayerNorm
+    and LayerScale, N(0, 0.02) CLS token and position embeddings."""
+    for name, prm in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("cls_token", "pos_embed"):
+            nn.init.normal_(prm, std=0.02, generator=gen)
+        elif leaf in ("ls1", "ls2"):
+            nn.init.ones_(prm)
+        elif leaf == "bias":
+            nn.init.zeros_(prm)
+    for mod in model.modules():
+        if isinstance(mod, nn.LayerNorm):
+            nn.init.ones_(mod.weight)
+        elif isinstance(mod, nn.ConvTranspose2d):  # weight (in, out, k, k)
+            _lecun_normal_(mod.weight, mod.weight.shape[0] * mod.weight[0, 0].numel(), gen)
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)):  # weight (out, in, ...)
+            _lecun_normal_(mod.weight, mod.weight[0].numel(), gen)
+    return model

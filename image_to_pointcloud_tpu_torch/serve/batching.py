@@ -1,0 +1,177 @@
+"""Micro-batching queue: concurrent requests share forward passes.
+
+Counterpart of ``image_to_pointcloud_tpu/serve/batching.py`` for pixel
+uploads. Concurrent jobs with the same image size and options coalesce
+into one batched pipeline call; a short window (a few ms) bounds the
+added latency, and an arrival-gap debounce dispatches a complete burst
+at once. Up to two drains run concurrently, so the host collect of one
+batch overlaps the device work of the next. The JAX package pads each
+batch to a fixed set of sizes because every size is a compile; PyTorch
+runs eagerly, so a batch is exactly the requests it holds.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import time
+from collections import defaultdict
+
+import numpy as np
+
+from image_to_pointcloud_tpu.serve import metrics
+from image_to_pointcloud_tpu_torch.pipeline.graph import (
+    DepthPipeline,
+    PipelineOptions,
+    PipelineResult,
+)
+
+__all__ = ["BatchingQueue"]
+
+_DRAIN_DEPTH = 2
+
+
+@dataclasses.dataclass
+class _Item:
+    image: np.ndarray  # (H, W, 3) u8
+    depth_scale: float
+    options: PipelineOptions
+    future: asyncio.Future
+    want_packed: bool = True
+
+
+class BatchingQueue:
+    def __init__(
+        self,
+        pipeline: DepthPipeline,
+        *,
+        max_batch: int = 8,
+        window_ms: float = 5.0,
+    ):
+        self.pipeline = pipeline
+        self.max_batch = max_batch
+        self.window_ms = window_ms
+        self._queue: asyncio.Queue[_Item] = asyncio.Queue()
+        self._worker: asyncio.Task | None = None
+
+    def _ensure_worker(self) -> None:
+        if self._worker is None or self._worker.done():
+            self._worker = asyncio.get_running_loop().create_task(self._run())
+
+    async def close(self) -> None:
+        """Cancel the drain task (idempotent); pending submits get
+        CancelledError."""
+        if self._worker is not None and not self._worker.done():
+            self._worker.cancel()
+            try:
+                await self._worker
+            except asyncio.CancelledError:
+                pass
+        self._worker = None
+        while not self._queue.empty():
+            item = self._queue.get_nowait()
+            if not item.future.done():
+                item.future.cancel()
+
+    async def submit(
+        self,
+        image: np.ndarray,
+        depth_scale: float,
+        options: PipelineOptions,
+        *,
+        want_packed: bool = True,
+    ) -> PipelineResult:
+        self._ensure_worker()
+        fut = asyncio.get_running_loop().create_future()
+        await self._queue.put(_Item(image, depth_scale, options, fut, want_packed))
+        return await fut
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        sem = asyncio.Semaphore(_DRAIN_DEPTH)
+        pending: set[asyncio.Task] = set()
+        batch: list[_Item] = []
+        try:
+            while True:
+                batch = [await self._queue.get()]
+                # Coalesce until full, the window expires, or no request
+                # arrived for the debounce gap.
+                deadline = loop.time() + self.window_ms / 1000.0
+                debounce = min(0.025, self.window_ms / 1000.0 / 3.0)
+                last_growth = loop.time()
+                while True:
+                    grew = False
+                    while len(batch) < self.max_batch and not self._queue.empty():
+                        batch.append(self._queue.get_nowait())
+                        grew = True
+                    now = loop.time()
+                    if grew:
+                        last_growth = now
+                    if len(batch) >= self.max_batch or self.window_ms <= 0:
+                        break
+                    if now - last_growth >= debounce and len(batch) > 1:
+                        break
+                    if deadline - now <= 0:
+                        break
+                    await asyncio.sleep(min(0.005, deadline - now))
+                await sem.acquire()
+                # Requests that queued while both drains were busy join
+                # this dispatch.
+                while len(batch) < self.max_batch and not self._queue.empty():
+                    batch.append(self._queue.get_nowait())
+                task = loop.create_task(self._drain(batch, loop, sem))
+                pending.add(task)
+                task.add_done_callback(pending.discard)
+        except asyncio.CancelledError:
+            for item in batch:
+                if not item.future.done():
+                    item.future.cancel()
+            for task in pending:
+                task.cancel()
+            raise
+
+    async def _drain(self, batch: "list[_Item]", loop, sem: asyncio.Semaphore) -> None:
+        try:
+            groups: dict[tuple, list[_Item]] = defaultdict(list)
+            for item in batch:
+                groups[(item.image.shape, item.options)].append(item)
+            for (_, options), items in groups.items():
+                metrics.BATCH_SIZE.observe(len(items))
+                images = [i.image for i in items]
+                scales = [i.depth_scale for i in items]
+                want_packed = any(i.want_packed for i in items)
+                try:
+                    t0 = time.perf_counter()
+                    handle = await loop.run_in_executor(
+                        None,
+                        lambda: self.pipeline.submit_batch(
+                            images, depth_scales=scales, options=options
+                        ),
+                    )
+                    t1 = time.perf_counter()
+                    results = await loop.run_in_executor(
+                        None,
+                        lambda: self.pipeline.collect(
+                            handle,
+                            want_packed=want_packed,
+                            # Serving renders paletted PNGs from the gray
+                            # preview; skip the RGB lookup.
+                            want_preview_rgb=False,
+                        ),
+                    )
+                    metrics.DRAIN_SUBMIT.observe(t1 - t0)
+                    metrics.DRAIN_COLLECT.observe(time.perf_counter() - t1)
+                    for item, res in zip(items, results):
+                        if not item.future.done():
+                            item.future.set_result(res)
+                except Exception as e:  # noqa: BLE001 — resolve every waiter
+                    for item in items:
+                        if not item.future.done():
+                            item.future.set_exception(e)
+        except asyncio.CancelledError:
+            for item in batch:
+                if not item.future.done():
+                    item.future.cancel()
+            raise
+        finally:
+            sem.release()

@@ -1,0 +1,202 @@
+"""The PyTorch port's v1 service on the CPU, and the port's import hygiene.
+
+A live first-party HTTP server runs the port's V1Service over a tiny
+random-init model; requests follow the reference frontend's shapes.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import httpx
+import numpy as np
+import pytest
+import torch
+
+from image_to_pointcloud_tpu.io import read_ply
+from image_to_pointcloud_tpu.io.image import encode_png
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _tiny_manager():
+    from image_to_pointcloud_tpu_torch.models.depth_anything import (
+        DepthAnything,
+        DepthAnythingConfig,
+        init_weights,
+    )
+    from image_to_pointcloud_tpu_torch.models.dinov2 import DinoV2Config
+    from image_to_pointcloud_tpu_torch.models.dpt import DPTConfig
+    from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
+    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
+
+    cfg = DepthAnythingConfig(
+        backbone=DinoV2Config(
+            hidden_size=32, num_layers=2, num_heads=2, pos_embed_size=4,
+            out_layers=(0, 1, 1, 1),
+        ),
+        neck=DPTConfig(
+            hidden_size=32, neck_hidden_sizes=(8, 16, 32, 32),
+            fusion_hidden_size=16, head_hidden_size=8,
+        ),
+    )
+    model = init_weights(DepthAnything(cfg), torch.Generator().manual_seed(0))
+    mm = ModelManager("cpu")
+    mm._cache["depth-anything-v2"] = DepthPipeline(model, model_target=56)
+    return mm
+
+
+class _ServerThread:
+    """An HttpServer + the port's v1 app on a private event-loop thread."""
+
+    def __init__(self, out_dir):
+        from image_to_pointcloud_tpu.serve.http import HttpServer
+        from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
+
+        self.loop = asyncio.new_event_loop()
+        self.app = create_v1_app(output_dir=str(out_dir), models=_tiny_manager())
+        self.server = HttpServer(self.app.router, "127.0.0.1", 0)
+        self.loop.run_until_complete(self.server.start())
+        self.port = self.server.bound_port
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+
+    def stop(self):
+        async def _shutdown():
+            await self.server.stop()
+            await self.app.shutdown()
+
+        asyncio.run_coroutine_threadsafe(_shutdown(), self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=30)
+        assert not self.thread.is_alive()
+        self.app.jobs.close()
+
+
+@pytest.fixture(scope="module")
+def base(tmp_path_factory):
+    srv = _ServerThread(tmp_path_factory.mktemp("torch_v1"))
+    yield f"http://127.0.0.1:{srv.port}"
+    srv.stop()
+
+
+def _poll(base, job_id, timeout=120):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        r = httpx.get(f"{base}/status/{job_id}", timeout=30)
+        assert r.status_code == 200
+        data = r.json()
+        if data["status"] in ("completed", "error"):
+            return data
+        time.sleep(0.1)
+    raise TimeoutError(f"job {job_id} did not finish")
+
+
+def _png(h, w, seed=7):
+    rng = np.random.default_rng(seed)
+    return encode_png(rng.integers(0, 256, (h, w, 3)).astype(np.uint8))
+
+
+@pytest.mark.parametrize(
+    "fmt,hw", [("ply", (70, 63)), ("xyz", (40, 52)), ("mesh_ply", (48, 48))]
+)
+def test_process_status_download(base, fmt, hw):
+    r = httpx.post(
+        f"{base}/process?output_format={fmt}&point_density=medium&depth_scale=15",
+        files={"file": ("t.png", _png(*hw), "image/png")},
+        timeout=60,
+    )
+    assert r.status_code == 200, r.text
+    assert r.json()["status"] == "queued"
+    final = _poll(base, r.json()["job_id"])
+    assert final["status"] == "completed", final["message"]
+    res = final["results"]
+    n = res["pointCloud"]["points"]
+    assert 0 < n <= -(-hw[0] // 2) * -(-hw[1] // 2)
+    assert res["depthMap"].startswith("data:image/png;base64,")
+    assert len(res["preview"]["points"]) == len(res["preview"]["colors"]) == n
+    dl = httpx.get(f"{base}{res['downloadUrl']}", timeout=60)
+    assert dl.status_code == 200 and len(dl.content) > 0
+    if fmt == "ply":
+        vert = read_ply(dl.content)["vertex"]
+        xyz = np.stack([vert["x"], vert["y"], vert["z"]], axis=1)
+        assert xyz.shape == (n, 3) and np.isfinite(xyz).all()
+    if fmt == "mesh_ply":
+        assert len(res["meshPreview"]["faces"]) > 0
+
+
+def test_concurrent_requests_share_batches(base):
+    """Concurrent same-size uploads all complete (the batcher coalesces
+    them into shared pipeline calls)."""
+    ids = []
+    for seed in range(4):
+        r = httpx.post(
+            f"{base}/process?output_format=ply",
+            files={"file": ("t.png", _png(40, 40, seed), "image/png")},
+            timeout=60,
+        )
+        ids.append(r.json()["job_id"])
+    for jid in ids:
+        assert _poll(base, jid)["status"] == "completed"
+
+
+def test_unported_paths_answer_501(base):
+    r = httpx.post(
+        f"{base}/process?model=triposr",
+        files={"file": ("t.png", _png(20, 20), "image/png")},
+        timeout=30,
+    )
+    assert r.status_code == 501 and "not ported" in r.text
+    assert httpx.post(f"{base}/profile/start", timeout=30).status_code == 501
+
+
+def test_contract_routes(base):
+    models = httpx.get(f"{base}/models", timeout=30).json()["models"]
+    assert [m["id"] for m in models] == ["depth-anything-v2", "triposr", "instantmesh"]
+    assert httpx.get(f"{base}/health", timeout=30).json()["status"] == "healthy"
+    r = httpx.post(
+        f"{base}/process", files={"file": ("t.txt", b"x", "text/plain")}, timeout=30
+    )
+    assert r.status_code == 400
+    r = httpx.post(
+        f"{base}/process?depth_scale=abc",
+        files={"file": ("t.png", _png(20, 20), "image/png")},
+        timeout=30,
+    )
+    assert r.status_code == 422
+    assert httpx.get(f"{base}/download/nope", timeout=30).status_code == 404
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, the server entry point included, imports
+    without JAX or Flax. A subprocess, because this test process has JAX
+    loaded (tests/conftest.py)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import image_to_pointcloud_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "assert 'image_to_pointcloud_tpu_torch.serve.__main__' in names, names\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_server_refuses_unported_flags():
+    proc = subprocess.run(
+        [sys.executable, "-m", "image_to_pointcloud_tpu_torch.serve",
+         "--jpeg-device-decode"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 2
+    assert "--jpeg-device-decode is not ported" in proc.stderr

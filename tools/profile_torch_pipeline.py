@@ -1,0 +1,73 @@
+"""Where a 518² request's time goes in the PyTorch port, on one GPU.
+
+    PYTHONPATH=. python3 tools/profile_torch_pipeline.py [--batch 1] [--iters 10]
+
+Runs ``DepthPipeline`` with Depth-Anything-V2-Small in bf16 (random
+init) on 518×518 images: the host wall time of submit+collect (what a
+request waits for), then one ``torch.profiler`` window over ``--iters``
+runs for device time by kernel and the device's busy share. Needs CUDA;
+imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_pipeline: CUDA is not available")
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip())
+    pipe = ModelManager("cuda").get("depth-anything-v2")
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (args.batch, 518, 518, 3), dtype=np.uint8)
+
+    def run():
+        return pipe.collect(pipe.submit_batch(imgs, depth_scales=15.0), want_preview_rgb=False)
+
+    for _ in range(3):
+        run()
+    walls = []
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print(f"batch {args.batch}: submit+collect median {wall * 1e3:.2f} ms "
+          f"({wall * 1e3 / args.batch:.2f} ms/image) over {args.iters}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            run()
+        window = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    print(f"profiled window {window * 1e3:.1f} ms, device kernel time {busy_us / 1e3:.1f} ms, "
+          f"busy share {busy_us / 1e3 / (window * 1e3):.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 1e3 / args.iters:9.3f} ms/run  "
+              f"{e.count // args.iters:5d}x  {e.key[:90]}")
+    launches = sum(e.count for e in events) // args.iters
+    print(f"device kernels per run: {launches}")
+
+
+if __name__ == "__main__":
+    main()
