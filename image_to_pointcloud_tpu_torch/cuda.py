@@ -29,13 +29,14 @@ __all__ = [
     "GRID_KNN",
     "KERNELS",
     "Kernel",
+    "UNPROJECT",
     "check",
     "library",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("flash_attention.cu", "grid_knn.cu", "error.cu")
+SOURCES = ("flash_attention.cu", "grid_knn.cu", "unproject.cu", "error.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -62,7 +63,8 @@ class Kernel:
 
 FLASH_ATTENTION = Kernel("flash_attention")
 GRID_KNN = Kernel("grid_knn")
-KERNELS = (FLASH_ATTENTION, GRID_KNN)
+UNPROJECT = Kernel("unproject")
+KERNELS = (FLASH_ATTENTION, GRID_KNN, UNPROJECT)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -108,6 +110,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ipc_flash_attention.restype = i
     lib.ipc_grid_knn.argtypes = [p, p, i, i, i, ll, ll, ll, p]
     lib.ipc_grid_knn.restype = i
+    f = ctypes.c_float
+    lib.ipc_unproject.argtypes = [
+        p, p, i, p, p, i, i, i, i, f, f, f, ll, ll, ll, ll, ll, ll, ll, p,
+    ]
+    lib.ipc_unproject.restype = i
     lib.ipc_cuda_error_string.argtypes = [i]
     lib.ipc_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,19 +1,22 @@
-"""Pinhole depth→point-cloud unprojection into the packed planar buffer.
+"""Pinhole depth→point-cloud unprojection into the packed planar buffer:
+the hand-written CUDA kernel and its plain PyTorch version.
 
-Counterpart of ``image_to_pointcloud_tpu/ops/unproject.py``'s jnp
-``unproject`` — the form the serving graph calls — bit-exact with it:
+Counterpart of ``image_to_pointcloud_tpu/ops/unproject.py``: its jnp
+``unproject`` (the form the JAX serving graph calls) and its Pallas
+kernel ``unproject_pallas``, which the kernel here (``csrc/unproject.cu``)
+replaces. The choice follows the tensor's device: a CUDA tensor launches
+the kernel (or raises), a CPU tensor takes :func:`unproject_plain`. Both
+compute, bit for bit:
 
 * intrinsics ``cx = w/2``, ``cy = h/2``; focal ``f = (w/2)/tan(fov/2)``
   when a fov is given, else ``max(w, h) * 1.2``,
 * density stride {"low": 4, "medium": 2, "high": 1},
 * ``z = d[v,u] * depth_scale``; x and y substitute ``1e-6`` for z when
   ``z == 0`` but z itself stays 0,
-* ``x = u·z / f`` divided, not multiplied by ``1/f`` (that rounds
-  differently, and the host reconstruct shares this exact math),
+* ``x = u·z / f`` divided, not multiplied by ``1/f`` as the Pallas kernel
+  does (that rounds differently, and the host reconstruct shares this
+  exact math),
 * rows ``[x, y, z, r, g, b, 1 (valid), 0]``.
-
-The Pallas kernel ``unproject_pallas`` of the JAX package is off the
-serving path and not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +25,15 @@ import math
 
 import torch
 
-__all__ = ["DENSITY_STRIDES", "focal_length", "unproject"]
+from image_to_pointcloud_tpu_torch import cuda
+
+__all__ = [
+    "DENSITY_STRIDES",
+    "focal_length",
+    "unproject",
+    "unproject_cuda",
+    "unproject_plain",
+]
 
 DENSITY_STRIDES = {"low": 4, "medium": 2, "high": 1}
 
@@ -34,7 +45,7 @@ def focal_length(h: int, w: int, fov_deg: float | None) -> float:
     return max(h, w) * 1.2
 
 
-def unproject(
+def unproject_plain(
     depth_norm: torch.Tensor,
     image_rgb: torch.Tensor,
     *,
@@ -90,3 +101,72 @@ def unproject(
         ],
         dim=-2,
     )
+
+
+def unproject_cuda(
+    depth_norm: torch.Tensor,
+    image_rgb: torch.Tensor,
+    *,
+    depth_scale: "torch.Tensor | float",
+    step: int,
+    h: int,
+    w: int,
+    fov_deg: float | None = None,
+) -> torch.Tensor:
+    """The CUDA kernel: (B, h, w) f32 depth and a (B, h, w, 3) u8 or f32
+    image → (B, 8, N) f32. Both inputs are read through their strides
+    (any views); ``depth_scale`` is a number or a (B,) tensor."""
+    if not (depth_norm.is_cuda and image_rgb.device == depth_norm.device):
+        raise ValueError(
+            f"unproject: needs CUDA tensors on one device, got {depth_norm.device} "
+            f"and {image_rgb.device}"
+        )
+    if depth_norm.dtype != torch.float32 or image_rgb.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(
+            f"unproject: needs f32 depth and a u8 or f32 image, got {depth_norm.dtype} "
+            f"and {image_rgb.dtype}"
+        )
+    d, img = depth_norm, image_rgb
+    if d.dim() != 3 or img.shape != (*d.shape, 3) or tuple(d.shape[1:]) != (h, w):
+        raise ValueError(
+            f"unproject: shapes {tuple(depth_norm.shape)}, {tuple(image_rgb.shape)} "
+            f"do not match (B, {h}, {w}) and (B, {h}, {w}, 3)"
+        )
+    bsz = d.shape[0]
+    scale = torch.as_tensor(depth_scale, dtype=torch.float32, device=d.device)
+    scale = scale.expand(bsz).contiguous()
+    hh, ww = -(-h // step), -(-w // step)
+    out = torch.empty((bsz, 8, hh * ww), dtype=torch.float32, device=d.device)
+    lib = cuda.library()
+    with torch.cuda.device(d.device):
+        err = lib.ipc_unproject(
+            d.data_ptr(), img.data_ptr(), int(img.dtype == torch.uint8),
+            scale.data_ptr(), out.data_ptr(), bsz, hh, ww, step,
+            w / 2.0, h / 2.0, focal_length(h, w, fov_deg),
+            *d.stride(), *img.stride(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda.check(err, cuda.UNPROJECT)
+    cuda.UNPROJECT.count()
+    return out
+
+
+def unproject(
+    depth_norm: torch.Tensor,
+    image_rgb: torch.Tensor,
+    *,
+    depth_scale: "torch.Tensor | float",
+    step: int,
+    h: int,
+    w: int,
+    fov_deg: float | None = None,
+) -> torch.Tensor:
+    """Packed (B, 8, N) point buffers; the kernel on a CUDA tensor, the
+    plain version (which also takes other leading shapes) on a CPU
+    tensor."""
+    kw = dict(depth_scale=depth_scale, step=step, h=h, w=w, fov_deg=fov_deg)
+    if depth_norm.device.type == "cuda":
+        return unproject_cuda(depth_norm, image_rgb, **kw)
+    if depth_norm.device.type == "cpu":
+        return unproject_plain(depth_norm, image_rgb, **kw)
+    raise ValueError(f"unproject: unsupported device {depth_norm.device}")

@@ -55,17 +55,20 @@ def main() -> None:
         "--ui", action="store_true", default=cfg.serve_ui,
         help="serve the first-party frontend at /ui",
     )
+    parser.add_argument(
+        "--jpeg-device-decode", action="store_true", default=cfg.jpeg_device_decode,
+        help="hybrid JPEG ingest: the host entropy-decodes JPEG uploads and "
+        "the device does dequant, IDCT, chroma upsample and colour",
+    )
     parser.add_argument("--log-json", action="store_true", default=cfg.log_json)
     # The JAX server's other paths: refused until ported.
     parser.add_argument("--generation", choices=["v1", "v2"], default="v1")
-    parser.add_argument("--jpeg-device-decode", action="store_true")
     parser.add_argument("--mesh", default=None)
     parser.add_argument("--checkpoint-dir", default=None)
     args = parser.parse_args()
     if args.generation != "v1":
         parser.error(f"--generation {args.generation} {_NOT_PORTED}")
     for flag, val in (
-        ("--jpeg-device-decode", args.jpeg_device_decode),
         ("--mesh", args.mesh),
         ("--checkpoint-dir", args.checkpoint_dir),
     ):
@@ -105,6 +108,7 @@ def main() -> None:
             max_file_size=cfg.max_file_size,
             max_preview_points=cfg.max_preview_points,
             mesh_preview_tris=cfg.mesh_preview_tris,
+            jpeg_device_decode=args.jpeg_device_decode,
             lazy_export=not args.eager_export,
             lazy_export_max_bytes=cfg.lazy_export_max_bytes,
         )

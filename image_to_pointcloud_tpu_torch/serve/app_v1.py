@@ -11,10 +11,13 @@ routes, job flow, progress milestones and result keys:
   ``/metrics``, ``/timings/{id}``, ``/openapi.json``, ``/docs``
 
 The HTTP server, job registry, metrics, exporters and meshing are the JAX
-package's own jax-free modules. Not ported yet, and answered with HTTP
-501: the dummy ``triposr``/``instantmesh`` graphs and the ``/profile``
-routes. Hybrid JPEG ingest is not ported either; every upload is decoded
-to pixels on the host.
+package's own jax-free modules. With ``jpeg_device_decode`` a JPEG upload
+takes the hybrid ingest: the host only entropy-decodes it
+(:func:`~image_to_pointcloud_tpu_torch.pipeline.graph.plan_jpeg_input`)
+and the pixels materialize on the device; other uploads, and JPEGs the
+planner declines, are decoded to pixels on the host. Not ported yet, and
+answered with HTTP 501: the dummy ``triposr``/``instantmesh`` graphs and
+the ``/profile`` routes.
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ from image_to_pointcloud_tpu.serve.rawjson import (
     int_list as _ints_json,
 )
 from image_to_pointcloud_tpu_torch.ops.colormap import PLASMA_RGB
-from image_to_pointcloud_tpu_torch.pipeline.graph import PipelineOptions
+from image_to_pointcloud_tpu_torch.ops.unproject import DENSITY_STRIDES
+from image_to_pointcloud_tpu_torch.pipeline.graph import PipelineOptions, plan_jpeg_input
 from image_to_pointcloud_tpu_torch.serve.batching import BatchingQueue
 from image_to_pointcloud_tpu_torch.serve.models import DUMMY_MODELS, ModelManager
 
@@ -129,6 +133,7 @@ class V1Service:
         max_file_size: int = MAX_FILE_SIZE,
         max_preview_points: int = MAX_PREVIEW_POINTS,
         mesh_preview_tris: int = 20000,
+        jpeg_device_decode: bool = False,
         lazy_export: bool = True,
         lazy_export_max_bytes: int = 256 * 1024 * 1024,
     ):
@@ -142,6 +147,9 @@ class V1Service:
         self.max_file_size = int(max_file_size)
         self.max_preview_points = int(max_preview_points)
         self.mesh_preview_tris = int(mesh_preview_tris)
+        # Hybrid JPEG ingest: eligible JPEGs ship DCT coefficients instead
+        # of pixels (pipeline.graph.plan_jpeg_input).
+        self.jpeg_device_decode = bool(jpeg_device_decode)
         # "grid" (exact depth-grid triangulation) | "poisson" | "bpa".
         self.mesh_method = mesh_method
         # Lazy export: point-format artifacts are written on the first
@@ -198,13 +206,26 @@ class V1Service:
 
     def warmup(self, model_name: str = "depth-anything-v2") -> None:
         """Build the model and run each warmup size once, so the first
-        request does not pay the kernel build and library autotuning.
+        request does not pay the kernel build and library autotuning;
+        with ``jpeg_device_decode``, once more through the hybrid ingest.
         Blocking; call from a startup thread."""
         pipeline = self.models.get(model_name)
         self.loaded_model_names.add(model_name)
         for h, w in self.warmup_sizes:
             logger.info("Warmup %dx%d", h, w)
             pipeline.run(np.zeros((h, w, 3), np.uint8))
+            if not self.jpeg_device_decode:
+                continue
+            plan = plan_jpeg_input(_warmup_jpeg(h, w))
+            if plan is None:
+                # A decline (no native library, or the sparse gate), not
+                # an error: say so, or the hybrid path stays cold silently.
+                logger.warning(
+                    "Warmup JPEG %dx%d: plan_jpeg_input declined; the hybrid "
+                    "ingest is not warmed for this size", h, w,
+                )
+                continue
+            pipeline.collect(pipeline.submit_batch_jpeg([plan]))
         logger.info("Warmup complete (%d sizes)", len(self.warmup_sizes))
 
     # ---------- pipeline task ----------
@@ -233,8 +254,28 @@ class V1Service:
 
             await jobs.update(job_id, progress=20, message="Processing image...")
             t0 = time.perf_counter()
-            image = await loop.run_in_executor(self.executor, decode_image_rgb, data)
-            _mark("decode", t0)
+            image = None
+            if self.jpeg_device_decode:
+                # Hybrid ingest: entropy-decode only; the pixels
+                # materialize on the device. None for non-JPEGs,
+                # unsupported streams and dense coefficients: those take
+                # the host decode below.
+                step = DENSITY_STRIDES[req["point_density"]]
+
+                def _plan(d=data, s=step):
+                    j = plan_jpeg_input(d)
+                    if j is not None:
+                        # Host grid colours here on the executor (cached),
+                        # so the batcher's drain does not pay for them.
+                        j.grid_colors(s)
+                    return j
+
+                image = await loop.run_in_executor(self.executor, _plan)
+                if image is not None:
+                    _mark("jpeg_plan", t0)
+            if image is None:
+                image = await loop.run_in_executor(self.executor, decode_image_rgb, data)
+                _mark("decode", t0)
 
             opts = PipelineOptions(
                 density=req["point_density"],
@@ -646,6 +687,24 @@ class V1Service:
             raise HTTPError(501, f"/profile {_NOT_PORTED}")
 
         return r
+
+
+def _warmup_jpeg(h: int, w: int) -> bytes:
+    """A q88 4:2:0 JPEG of photographic statistics (gradient fields plus
+    noise), so the warmup plans the spec and capacities that ordinary
+    uploads of this size get."""
+    import io
+
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    rng = np.random.default_rng(0)
+    frame = 96.0 + 64.0 * np.sin(xx / 37.0) + 48.0 * np.cos(yy / 23.0)
+    frame = frame + rng.normal(0.0, 6.0, (h, w))
+    frame = np.clip(frame, 0, 255).astype(np.uint8)[..., None].repeat(3, axis=-1)
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, format="JPEG", quality=88)
+    return buf.getvalue()
 
 
 def create_v1_app(**kwargs) -> V1Service:

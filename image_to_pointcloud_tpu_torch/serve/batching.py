@@ -1,10 +1,11 @@
 """Micro-batching queue: concurrent requests share forward passes.
 
-Counterpart of ``image_to_pointcloud_tpu/serve/batching.py`` for pixel
-uploads. Concurrent jobs with the same image size and options coalesce
-into one batched pipeline call; a short window (a few ms) bounds the
-added latency, and an arrival-gap debounce dispatches a complete burst
-at once. Up to two drains run concurrently, so the host collect of one
+Counterpart of ``image_to_pointcloud_tpu/serve/batching.py``. Concurrent
+jobs with the same signature (the image size for decoded pixels, the
+``JpegSpec`` for hybrid-JPEG items) and options coalesce into one
+batched pipeline call; a short window (a few ms) bounds the added
+latency, and an arrival-gap debounce dispatches a complete burst at
+once. Up to two drains run concurrently, so the host collect of one
 batch overlaps the device work of the next. The JAX package pads each
 batch to a fixed set of sizes because every size is a compile; PyTorch
 runs eagerly, so a batch is exactly the requests it holds.
@@ -16,6 +17,7 @@ import asyncio
 import dataclasses
 import time
 from collections import defaultdict
+from typing import Any
 
 import numpy as np
 
@@ -33,11 +35,21 @@ _DRAIN_DEPTH = 2
 
 @dataclasses.dataclass
 class _Item:
-    image: np.ndarray  # (H, W, 3) u8
+    # Decoded (H, W, 3) u8 pixels, or a pipeline.graph.JpegInput on the
+    # hybrid device-decode ingest.
+    image: Any
     depth_scale: float
     options: PipelineOptions
     future: asyncio.Future
     want_packed: bool = True
+
+    @property
+    def signature(self) -> Any:
+        """Shape part of the grouping key: the pixel array's shape, or the
+        JpegSpec of a hybrid item."""
+        if isinstance(self.image, np.ndarray):
+            return self.image.shape
+        return self.image.spec
 
 
 class BatchingQueue:
@@ -75,7 +87,7 @@ class BatchingQueue:
 
     async def submit(
         self,
-        image: np.ndarray,
+        image: Any,
         depth_scale: float,
         options: PipelineOptions,
         *,
@@ -134,19 +146,22 @@ class BatchingQueue:
         try:
             groups: dict[tuple, list[_Item]] = defaultdict(list)
             for item in batch:
-                groups[(item.image.shape, item.options)].append(item)
+                groups[(item.signature, item.options)].append(item)
             for (_, options), items in groups.items():
                 metrics.BATCH_SIZE.observe(len(items))
                 images = [i.image for i in items]
                 scales = [i.depth_scale for i in items]
                 want_packed = any(i.want_packed for i in items)
+                submit = (
+                    self.pipeline.submit_batch
+                    if isinstance(images[0], np.ndarray)
+                    else self.pipeline.submit_batch_jpeg
+                )
                 try:
                     t0 = time.perf_counter()
                     handle = await loop.run_in_executor(
                         None,
-                        lambda: self.pipeline.submit_batch(
-                            images, depth_scales=scales, options=options
-                        ),
+                        lambda: submit(images, depth_scales=scales, options=options),
                     )
                     t1 = time.perf_counter()
                     results = await loop.run_in_executor(

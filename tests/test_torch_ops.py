@@ -9,10 +9,12 @@ or the XLA/scan forms). Tolerances:
 * attention module: 2e-5 abs, f32 — the JAX flash test's own;
 * grid-kNN module: rtol 1e-5, atol 1e-7 — the JAX Pallas test's own;
 * depthnorm, blur, colormap, outlier threshold rule: bit-exact;
-* unproject: z, colors, valid rows bit-exact; x and y bit-exact with
-  numpy's f32 ``u·z / f`` and within 1 ulp of JAX, whose CPU backend
-  folds the division by the constant focal length into a reciprocal
-  multiply;
+* unproject (K3 module): z, colors, valid rows bit-exact against both
+  JAX forms, the jnp ``unproject`` and the Pallas ``unproject_pallas`` in
+  interpret mode; x and y bit-exact with numpy's f32 ``u·z / f`` and
+  within 1 ulp of JAX, which multiplies by ``1/f`` (the Pallas kernel
+  does so explicitly, and XLA's CPU backend folds the jnp form's
+  division by the constant focal length into the same product);
 * resize: rtol 1e-6 (f32 sums in another order).
 """
 
@@ -167,6 +169,43 @@ def test_unproject_bit_exact(rng, step, fov):
         jops.unproject(d, img, depth_scale=2.5, step=step, h=h, w=w, fov_deg=fov)
     )
     np.testing.assert_array_equal(both[1][2:], ref2[2:])
+
+
+@pytest.mark.parametrize(
+    "hw,step,fov", [((40, 64), 2, None), ((37, 45), 1, 60.0), ((30, 41), 4, None)]
+)
+def test_unproject_plain_matches_pallas(rng, hw, step, fov):
+    """K3: the plain version against the Pallas kernel, run in interpret
+    mode as tests/test_ops.py runs it."""
+    from image_to_pointcloud_tpu.ops.unproject import unproject_pallas
+    from image_to_pointcloud_tpu_torch.ops.unproject import unproject, unproject_plain
+
+    h, w = hw
+    img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    d = rng.random((h, w)).astype(np.float32)
+    d[4, 8] = 0.0  # the z == 0 epsilon path
+    ref = np.asarray(
+        unproject_pallas(
+            d, img, depth_scale=7.5, step=step, h=h, w=w, fov_deg=fov, interpret=True
+        )
+    )
+    kw = dict(depth_scale=7.5, step=step, h=h, w=w, fov_deg=fov)
+    ours = unproject_plain(_t(d), _t(img), **kw).numpy()
+    assert ours.shape == ref.shape == (8, -(-h // step) * -(-w // step))
+    np.testing.assert_array_equal(ours[2:], ref[2:])
+    ulp = np.spacing(np.abs(ref[:2]).astype(np.float32))
+    assert (np.abs(ours[:2] - ref[:2]) <= ulp).all()
+    # On a CPU tensor the dispatching unproject is the plain version.
+    np.testing.assert_array_equal(unproject(_t(d), _t(img), **kw).numpy(), ours)
+
+
+def test_unproject_cuda_wrapper_refuses_cpu_tensors():
+    from image_to_pointcloud_tpu_torch.ops.unproject import unproject_cuda
+
+    with pytest.raises(ValueError, match="CUDA"):
+        unproject_cuda(
+            torch.zeros(1, 4, 4), torch.zeros(1, 4, 4, 3), depth_scale=1.0, step=1, h=4, w=4
+        )
 
 
 @pytest.mark.parametrize("ksize", [5, 11])

@@ -7,6 +7,7 @@ random-init model; requests follow the reference frontend's shapes.
 from __future__ import annotations
 
 import asyncio
+import io
 import subprocess
 import sys
 import threading
@@ -24,7 +25,7 @@ from image_to_pointcloud_tpu.io.image import encode_png
 REPO = Path(__file__).resolve().parents[1]
 
 
-def _tiny_manager():
+def _tiny_manager(**pipeline_kw):
     from image_to_pointcloud_tpu_torch.models.depth_anything import (
         DepthAnything,
         DepthAnythingConfig,
@@ -47,19 +48,21 @@ def _tiny_manager():
     )
     model = init_weights(DepthAnything(cfg), torch.Generator().manual_seed(0))
     mm = ModelManager("cpu")
-    mm._cache["depth-anything-v2"] = DepthPipeline(model, model_target=56)
+    mm._cache["depth-anything-v2"] = DepthPipeline(model, model_target=56, **pipeline_kw)
     return mm
 
 
 class _ServerThread:
     """An HttpServer + the port's v1 app on a private event-loop thread."""
 
-    def __init__(self, out_dir):
+    def __init__(self, out_dir, manager=None, **app_kw):
         from image_to_pointcloud_tpu.serve.http import HttpServer
         from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
 
         self.loop = asyncio.new_event_loop()
-        self.app = create_v1_app(output_dir=str(out_dir), models=_tiny_manager())
+        self.app = create_v1_app(
+            output_dir=str(out_dir), models=manager or _tiny_manager(), **app_kw
+        )
         self.server = HttpServer(self.app.router, "127.0.0.1", 0)
         self.loop.run_until_complete(self.server.start())
         self.port = self.server.bound_port
@@ -81,6 +84,19 @@ class _ServerThread:
 @pytest.fixture(scope="module")
 def base(tmp_path_factory):
     srv = _ServerThread(tmp_path_factory.mktemp("torch_v1"))
+    yield f"http://127.0.0.1:{srv.port}"
+    srv.stop()
+
+
+@pytest.fixture(scope="module")
+def jpeg_base(tmp_path_factory):
+    """The hybrid JPEG ingest, with the card's default return (the
+    quantized bundle) forced on the CPU."""
+    srv = _ServerThread(
+        tmp_path_factory.mktemp("torch_v1_jpeg"),
+        _tiny_manager(quantized_transfer=True),
+        jpeg_device_decode=True,
+    )
     yield f"http://127.0.0.1:{srv.port}"
     srv.stop()
 
@@ -128,6 +144,79 @@ def test_process_status_download(base, fmt, hw):
         assert xyz.shape == (n, 3) and np.isfinite(xyz).all()
     if fmt == "mesh_ply":
         assert len(res["meshPreview"]["faces"]) > 0
+
+
+def _jpeg(h, w, seed=0):
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    rng = np.random.default_rng(seed)
+    img = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 127 // (h + w)], -1)
+    img = np.clip(img + rng.integers(0, 24, (h, w, 3)), 0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=88)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize(
+    "upload,ctype,stage",
+    [(lambda: _jpeg(88, 120), "image/jpeg", "jpeg_plan"),
+     (lambda: _png(70, 63), "image/png", "decode")],
+)
+def test_jpeg_device_decode_server(jpeg_base, upload, ctype, stage):
+    """A q88 JPEG takes the device decode and a PNG the host decode; both
+    return a valid PLY."""
+    from image_to_pointcloud_tpu import native
+
+    if ctype == "image/jpeg" and not native.available():
+        pytest.skip("the native library (g++ build) is unavailable")
+    r = httpx.post(
+        f"{jpeg_base}/process?output_format=ply&point_density=medium&depth_scale=15",
+        files={"file": ("t", upload(), ctype)},
+        timeout=60,
+    )
+    assert r.status_code == 200, r.text
+    job = r.json()["job_id"]
+    final = _poll(jpeg_base, job)
+    assert final["status"] == "completed", final["message"]
+    timings = httpx.get(f"{jpeg_base}/timings/{job}", timeout=30).json()["timings"]
+    (other,) = {"jpeg_plan", "decode"} - {stage}
+    assert stage in timings and other not in timings
+    n = final["results"]["pointCloud"]["points"]
+    vert = read_ply(httpx.get(f"{jpeg_base}/download/{job}", timeout=60).content)["vertex"]
+    xyz = np.stack([vert["x"], vert["y"], vert["z"]], axis=1)
+    assert xyz.shape == (n, 3) and n > 0 and np.isfinite(xyz).all()
+
+
+def test_batcher_groups_pixels_and_jpegs():
+    """Pixel and hybrid-JPEG items queued together drain as separate
+    groups, each through its own submit, and every waiter gets its own
+    image's result."""
+    from image_to_pointcloud_tpu_torch.pipeline.graph import PipelineOptions, plan_jpeg_input
+    from image_to_pointcloud_tpu_torch.serve.batching import BatchingQueue
+
+    jpeg = plan_jpeg_input(_jpeg(88, 120))
+    if jpeg is None:
+        pytest.skip("the native library (g++ build) is unavailable")
+    pipe = _tiny_manager(quantized_transfer=True).get("depth-anything-v2")
+    pixels = np.random.default_rng(0).integers(0, 256, (40, 52, 3), dtype=np.uint8)
+
+    async def run():
+        queue = BatchingQueue(pipe, window_ms=50.0)
+        try:
+            return await asyncio.wait_for(asyncio.gather(
+                queue.submit(jpeg, 15.0, PipelineOptions()),
+                queue.submit(pixels, 15.0, PipelineOptions()),
+                queue.submit(jpeg, 5.0, PipelineOptions()),
+            ), timeout=120)
+        finally:
+            await queue.close()
+
+    a, b, c = asyncio.run(run())
+    assert a.grid_hw == c.grid_hw == (44, 60) and b.grid_hw == (20, 26)
+    assert len(a.points) == len(c.points) > 0 and len(b.points) > 0
+    # The two JPEG items differ only by depth scale: z scales with it.
+    np.testing.assert_allclose(c.points[:, 2].sum() * 3.0, a.points[:, 2].sum(), rtol=1e-3)
 
 
 def test_concurrent_requests_share_batches(base):
@@ -195,8 +284,9 @@ def test_port_imports_no_jax():
 def test_server_refuses_unported_flags():
     proc = subprocess.run(
         [sys.executable, "-m", "image_to_pointcloud_tpu_torch.serve",
-         "--jpeg-device-decode"],
+         "--jpeg-device-decode", "--mesh", "data=2"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 2
-    assert "--jpeg-device-decode is not ported" in proc.stderr
+    assert "--mesh is not ported" in proc.stderr
+    assert "--jpeg-device-decode is not ported" not in proc.stderr

@@ -1,17 +1,20 @@
 """Where a 518² request's time goes in the PyTorch port, on one GPU.
 
     PYTHONPATH=. python3 tools/profile_torch_pipeline.py [--batch 1] [--iters 10]
+        [--ingest png|jpeg] [--transfer quantized|f32]
 
 Runs ``DepthPipeline`` with Depth-Anything-V2-Small in bf16 (random
-init) on 518×518 images: the host wall time of submit+collect (what a
-request waits for), then one ``torch.profiler`` window over ``--iters``
-runs for device time by kernel and the device's busy share. Needs CUDA;
-imports no JAX.
+init) on 518×518 images, decoded pixels or q88 JPEGs through the hybrid
+device decode, with the quantized bundle (the card's default) or the f32
+return: the host wall time of submit+collect (what a request waits for),
+then one ``torch.profiler`` window over ``--iters`` runs for device time
+by kernel and the device's busy share. Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import statistics
 import subprocess
 import time
@@ -24,23 +27,47 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--ingest", choices=["png", "jpeg"], default="png")
+    ap.add_argument("--transfer", choices=["quantized", "f32"], default="quantized")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_pipeline: CUDA is not available")
     from torch.profiler import ProfilerActivity, profile
 
+    from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline, plan_jpeg_input
     from image_to_pointcloud_tpu_torch.serve.models import ModelManager
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip())
-    pipe = ModelManager("cuda").get("depth-anything-v2")
+    served = ModelManager("cuda").get("depth-anything-v2")
+    pipe = DepthPipeline(served.model, quantized_transfer=args.transfer == "quantized")
     rng = np.random.default_rng(0)
-    imgs = rng.integers(0, 256, (args.batch, 518, 518, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[0:518, 0:518]
+    imgs = [
+        np.clip(np.stack([xx // 3, yy // 3, (xx + yy) // 5], -1)
+                + rng.integers(0, 24, (518, 518, 3)), 0, 255).astype(np.uint8)
+        for _ in range(args.batch)
+    ]
+    if args.ingest == "jpeg":
+        from PIL import Image
+
+        jpegs = []
+        for img in imgs:
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, "JPEG", quality=88)
+            jpegs.append(plan_jpeg_input(buf.getvalue()))
+            if jpegs[-1] is None:
+                raise SystemExit("profile_torch_pipeline: the JPEG planner declined the frame")
+            jpegs[-1].grid_colors(2)  # the server's planner does this off the drain
 
     def run():
-        return pipe.collect(pipe.submit_batch(imgs, depth_scales=15.0), want_preview_rgb=False)
+        if args.ingest == "jpeg":
+            handle = pipe.submit_batch_jpeg(jpegs, depth_scales=15.0)
+        else:
+            handle = pipe.submit_batch(imgs, depth_scales=15.0)
+        return pipe.collect(handle, want_packed=False, want_preview_rgb=False)
 
     for _ in range(3):
         run()
@@ -50,7 +77,7 @@ def main() -> None:
         run()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    print(f"batch {args.batch}: submit+collect median {wall * 1e3:.2f} ms "
+    print(f"{args.ingest}/{args.transfer} batch {args.batch}: submit+collect median {wall * 1e3:.2f} ms "
           f"({wall * 1e3 / args.batch:.2f} ms/image) over {args.iters}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
