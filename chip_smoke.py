@@ -5,7 +5,8 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 1. device: CUDA must be available; the card's name and power limit.
 2. build: the CUDA kernels from ``image_to_pointcloud_tpu_torch/csrc``.
 3. K1 flash attention vs its plain version at the flagship shape
-   (2, 6, 1370, 64) bf16 and at a ragged N=200, with CUDA-event times.
+   (2, 6, 1370, 64) bf16, at classic DPT-Large's (1, 16, 577, 64) bf16
+   (both with CUDA-event times) and at a ragged N=200.
 4. K2 grid-kNN vs its plain version at (2, 259, 259, 3) — 518² at
    medium density — and at the odd grid (1, 150, 200, 3).
 5. K3 unproject vs its plain version, bit for bit, at (2, 518, 518)
@@ -14,17 +15,29 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 6. the transfer codecs on the card vs the CPU, byte for byte.
 7. the JPEG device decode of a q88 4:2:0 518² frame: sparse vs dense
    payload bit for bit, card vs CPU within 1 level, vs PIL within 3.
-8. the slice on the card vs the slice on the CPU: a tiny config with
+8. the slice on the card vs the slice on the CPU, for tiny configs of
+   the three families (Depth-Anything-V2, classic DPT, ZoeDepth) with
    64-wide heads, same weights, f32, TF32 off, through the f32 return
    and through the quantized bundle.
-9. the v1 server in this process with Depth-Anything-V2-Small in bf16,
-   each main path read on its own (the launch counters zeroed just
-   before and read just after): 518² and 400×300 PNG → PLY requests
-   through the default quantized bundle, then a second app with the
-   hybrid JPEG ingest and five q88 518² JPEG → PLY requests, every one
-   of which must take the device decode.
-10. batch-1 ``submit_batch`` + ``collect`` medians, in turns: PNG with
+9. the v1 server in this process, bf16, each main path read on its own
+   (the launch counters zeroed just before and read just after):
+   Depth-Anything-V2-Small with 518² and 400×300 PNG → PLY requests
+   through the default quantized bundle, and in a second app with the
+   hybrid JPEG ingest five q88 518² JPEG → PLY requests, every one of
+   which must take the device decode; then ``dpt-large`` (ViT-L/16,
+   384², K1 in all 24 layers) and ``zoedepth`` (BEiT-L/16, 518² padded
+   to 614² and run at 512², whose biased attention is plain torch ops,
+   so K1 must stay at zero) at full width, random init, one cold and
+   three 518² PNG → PLY requests each.
+10. a ``triposr`` request, and the dummy graphs on the card vs the CPU,
+    bit for bit.
+11. batch-1 ``submit_batch`` + ``collect`` medians, in turns: PNG with
     the f32 return, PNG with the quantized bundle, JPEG with the bundle.
+12. ``/profile/start`` and ``/profile/stop`` around one ``dpt-large``
+    request: the Chrome trace must exist and name the CUDA kernels. Last,
+    so that no profiler session precedes the timings of phase 11.
+
+Each phase logs its wall time.
 
 It prints the per-kernel JSON line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. It needs
@@ -60,7 +73,9 @@ K2_RTOL, K2_ATOL = 1e-5, 1e-7
 # JPEG decode: card vs CPU within 1 level (f32 GEMMs sum in another
 # order); vs PIL within libjpeg's integer-IDCT tolerance.
 JPEG_CPU_TOL, JPEG_PIL_TOL = 1.0, 3.0
-# Slice, card vs CPU (the port's CPU parity tolerances).
+# Slice, card vs CPU (the port's CPU parity tolerances; ZoeDepth through
+# the quantized bundle: the larger of SLICE_RMSE and the codec's own error,
+# see _slice_card_vs_cpu).
 SLICE_KEEP_AGREE, SLICE_RMSE = 0.995, 1e-3
 
 
@@ -86,8 +101,8 @@ def phase_k1() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for shape, dtype in [((2, 6, 1370, 64), torch.bfloat16), ((1, 6, 200, 64), torch.bfloat16),
-                         ((2, 6, 1370, 64), torch.float32)]:
+    for shape, dtype in [((2, 6, 1370, 64), torch.bfloat16), ((1, 16, 577, 64), torch.bfloat16),
+                         ((1, 6, 200, 64), torch.bfloat16), ((2, 6, 1370, 64), torch.float32)]:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
         o = flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -98,11 +113,12 @@ def phase_k1() -> dict:
         log(f"K1 {tuple(shape)} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol:g})")
         if not err <= tol:
             raise AssertionError(f"K1 disagrees with its plain version at {shape} {dtype}")
-        if shape == (2, 6, 1370, 64) and dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and shape[2] > 200:
             ms = cuda_time_ms(lambda: flash_attention(q, k, v), 50)
             plain_ms = cuda_time_ms(lambda: attention_plain(q, k, v, 1.0 / 8.0), 50)
-            log(f"K1 flagship bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            log(f"K1 {tuple(shape)} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            if shape == (2, 6, 1370, 64):
+                out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     return out
 
 
@@ -228,45 +244,98 @@ def phase_jpeg_decode() -> None:
         raise AssertionError("the JPEG device decode disagrees")
 
 
-def phase_slice() -> None:
-    from image_to_pointcloud_tpu_torch.models.depth_anything import (
-        DepthAnything,
-        DepthAnythingConfig,
-        init_weights,
-    )
+def _tiny_configs() -> dict:
+    """Tiny configs of the three families with 64-wide heads (K1 runs in
+    the ViTs on the card), and each one's model target."""
+    from image_to_pointcloud_tpu_torch.models.beit import BeitConfig
+    from image_to_pointcloud_tpu_torch.models.depth_anything import DepthAnythingConfig
     from image_to_pointcloud_tpu_torch.models.dinov2 import DinoV2Config
     from image_to_pointcloud_tpu_torch.models.dpt import DPTConfig
+    from image_to_pointcloud_tpu_torch.models.dpt_classic import DPTClassicConfig
+    from image_to_pointcloud_tpu_torch.models.vit import ViTConfig
+    from image_to_pointcloud_tpu_torch.models.zoedepth import ZoeDepthConfig
+
+    return {
+        "Depth-Anything-V2": (DepthAnythingConfig(
+            backbone=DinoV2Config(hidden_size=128, num_layers=2, num_heads=2,
+                                  out_layers=(0, 1, 1, 1)),
+            neck=DPTConfig(hidden_size=128, neck_hidden_sizes=(32, 64, 128, 128),
+                           fusion_hidden_size=32),
+        ), 140),
+        # A 128² input on a 64²-native model: the position embeddings are
+        # resampled.
+        "classic DPT": (DPTClassicConfig(
+            backbone=ViTConfig(hidden_size=128, num_layers=2, num_heads=2, pos_embed_size=4,
+                               out_layers=(0, 1, 1, 1)),
+            neck_hidden_sizes=(32, 64, 128, 128), fusion_hidden_size=32,
+        ), 128),
+        # Reflect-padded 260×328 → 128×160: an 8×10 grid on a 4×4 window,
+        # so the bias tables are resampled.
+        "ZoeDepth": (ZoeDepthConfig(
+            backbone=BeitConfig(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256,
+                                window_size=4, out_layers=(1, 2, 2, 2)),
+            neck_hidden_sizes=(32, 64, 96, 128), fusion_hidden_size=32, bottleneck_features=32,
+            num_relative_features=8, bin_embedding_dim=16, n_bins=16,
+        ), (128, 160)),
+    }
+
+
+def phase_slice() -> None:
+    from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, init_weights
+
+    for family, (cfg, target) in _tiny_configs().items():
+        _slice_card_vs_cpu(
+            family,
+            init_weights(build_model(cfg), torch.Generator().manual_seed(0)),
+            init_weights(build_model(cfg), torch.Generator().manual_seed(0)).to("cuda"),
+            target,
+        )
+
+
+def _rmse(a, b) -> float:
+    """Per-point RMSE of two results' packed points, on points both keep."""
+    both = (a.packed[6] > 0.5) & (b.packed[6] > 0.5)
+    return float(np.sqrt(((a.packed[:3, both] - b.packed[:3, both]) ** 2).sum(0).mean()))
+
+
+def _slice_card_vs_cpu(family: str, cpu_model, gpu_model, target) -> None:
     from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
 
-    cfg = DepthAnythingConfig(
-        backbone=DinoV2Config(hidden_size=128, num_layers=2, num_heads=2, out_layers=(0, 1, 1, 1)),
-        neck=DPTConfig(hidden_size=128, neck_hidden_sizes=(32, 64, 128, 128), fusion_hidden_size=32),
-    )
-    cpu_model = init_weights(DepthAnything(cfg), torch.Generator().manual_seed(0))
-    gpu_model = init_weights(DepthAnything(cfg), torch.Generator().manual_seed(0)).to("cuda")
     img = np.random.default_rng(0).integers(0, 256, (200, 260, 3), dtype=np.uint8)
+    cpu_f32 = None
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         for quantized in (False, True):
-            kw = dict(model_target=140, quantized_transfer=quantized)
+            kw = dict(model_target=target, quantized_transfer=quantized)
             cpu = DepthPipeline(cpu_model, **kw).run(img, depth_scale=15.0)
             gpu = DepthPipeline(gpu_model, **kw).run(img, depth_scale=15.0)
             kc, kg = cpu.packed[6] > 0.5, gpu.packed[6] > 0.5
-            both = kc & kg
             agree = float((kc == kg).mean())
-            rmse = float(np.sqrt(((cpu.packed[:3, both] - gpu.packed[:3, both]) ** 2)
-                                 .sum(0).mean()))
+            rmse = _rmse(cpu, gpu)
+            tol, codec = SLICE_RMSE, ""
+            if not quantized:
+                cpu_f32 = cpu
+            elif family == "ZoeDepth":
+                # The random-init ZoeDepth map spans only ±8 % of its mean
+                # (the others span their whole range), so the depth
+                # normalization scales its card-vs-CPU f32 differences up
+                # ~9x, and the bundle's per-tile codes flip by one step
+                # where the others' do not. Its bundle is held to the
+                # codec's own error on this map instead.
+                codec_rmse = _rmse(cpu, cpu_f32)
+                tol = max(SLICE_RMSE, codec_rmse)
+                codec = f", the codec's own rmse on the CPU {codec_rmse:.3e}"
             colors = bool(np.array_equal(cpu.packed[3:6], gpu.packed[3:6]))
             prev = int(np.abs(cpu.depth_preview_gray.astype(int)
                               - gpu.depth_preview_gray.astype(int)).max())
-            log(f"slice card vs CPU, {'quantized bundle' if quantized else 'f32 return'}: "
+            log(f"{family} slice card vs CPU, {'quantized bundle' if quantized else 'f32 return'}: "
                 f"points {gpu.raw_point_count}/{cpu.raw_point_count}, colors exact {colors}, "
                 f"keep agree {agree:.5f} (>= {SLICE_KEEP_AGREE}), rmse {rmse:.3e} "
-                f"(< {SLICE_RMSE}), preview max diff {prev}")
+                f"(< {tol:.3e}{codec}), preview max diff {prev}")
             if not (gpu.raw_point_count == cpu.raw_point_count and colors
-                    and agree >= SLICE_KEEP_AGREE and rmse < SLICE_RMSE and prev <= 1):
-                raise AssertionError("slice on the card disagrees with the slice on the CPU")
+                    and agree >= SLICE_KEEP_AGREE and rmse < tol and prev <= 1):
+                raise AssertionError(f"{family} slice on the card disagrees with the CPU")
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
@@ -281,20 +350,21 @@ def _multipart(data: bytes, ctype: str) -> tuple[bytes, str]:
 
 
 def _http(url: str, data: bytes | None = None, ctype: str | None = None) -> bytes:
-    req = urllib.request.Request(url, data=data, method="POST" if data else "GET")
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
     if ctype:
         req.add_header("Content-Type", ctype)
     with urllib.request.urlopen(req, timeout=300) as r:
         return r.read()
 
 
-def _request(base: str, data: bytes, ctype: str = "image/png") -> tuple[float, dict, bytes]:
+def _request(base: str, data: bytes, ctype: str = "image/png",
+             model: str = "depth-anything-v2") -> tuple[float, dict, bytes]:
     """POST /process → poll /status → GET /download; returns (seconds from
     the upload to the downloaded PLY, final status, the PLY)."""
     body, ctype = _multipart(data, ctype)
     t0 = time.perf_counter()
     job = json.loads(_http(f"{base}/process?output_format=ply&point_density=medium"
-                           f"&depth_scale=15", body, ctype))["job_id"]
+                           f"&depth_scale=15&model={model}", body, ctype))["job_id"]
     deadline = t0 + 600
     while True:
         st = json.loads(_http(f"{base}/status/{job}?wait_ms=2000"))
@@ -326,7 +396,18 @@ def _png(h: int, w: int, seed: int) -> bytes:
     return encode_png(_frame(h, w, seed))
 
 
-def _served_requests(base: str, kind: str) -> dict[str, int]:
+# The main paths the server drives: (ingest, model, 518² requests after
+# the cold one, kernels that must not launch).
+SERVED_PATHS = [
+    ("png", "depth-anything-v2", 5, ()),
+    ("jpeg", "depth-anything-v2", 5, ()),
+    ("png", "dpt-large", 3, ()),
+    # BEiT's attention carries an additive bias: plain torch ops, not K1.
+    ("png", "zoedepth", 3, ("flash_attention",)),
+]
+
+
+def _served_requests(base: str, kind: str, model: str, n: int, idle: tuple) -> dict[str, int]:
     """One main path through the server: the launch counters are zeroed
     just before its requests and read just after."""
     from image_to_pointcloud_tpu_torch import cuda
@@ -337,54 +418,122 @@ def _served_requests(base: str, kind: str) -> dict[str, int]:
     }[kind]
     # The first request of a path builds the model and the kernels: not
     # timed as serving.
-    lat, st, _ = _request(base, make(518, 518, 0), ctype)
-    log(f"server cold {kind} request 518x518: {lat * 1e3:.1f} ms, timings {st['timings']}")
+    lat, st, _ = _request(base, make(518, 518, 0), ctype, model)
+    log(f"server cold {model} {kind} request 518x518: {lat * 1e3:.1f} ms, "
+        f"timings {st['timings']}")
 
     for k in cuda.KERNELS:
         k.reset()
     lats = []
-    sizes = [(518, 518)] * 5 + ([(300, 400)] if kind == "png" else [])
-    for i, (h, w) in enumerate(sizes):
-        lat, st, ply = _request(base, make(h, w, 10 + i), ctype)
+    extra = [(300, 400)] if (kind, model) == ("png", "depth-anything-v2") else []
+    for i, (h, w) in enumerate([(518, 518)] * n + extra):
+        lat, st, ply = _request(base, make(h, w, 10 + i), ctype, model)
         _check_ply(ply, st["results"]["pointCloud"]["points"])
         if stage not in st["timings"]:
             raise AssertionError(f"{kind} request #{i} did not take the {stage} ingest: "
                                  f"timings {st['timings']}")
         if (h, w) == (518, 518):
             lats.append(lat)
-        log(f"{kind} request {w}x{h} #{i}: {lat * 1e3:.1f} ms, "
+        log(f"{model} {kind} request {w}x{h} #{i}: {lat * 1e3:.1f} ms, "
             f"{st['results']['pointCloud']['points']} points, timings {st['timings']}")
     counts = {k.name: k.launches for k in cuda.KERNELS}
-    log(f"server p50 latency 518x518 {kind.upper()} -> PLY: "
+    log(f"server p50 latency 518x518 {model} {kind.upper()} -> PLY: "
         f"{statistics.median(lats) * 1e3:.1f} ms over {len(lats)} sequential requests")
-    log(f"kernel launches during the served {kind} requests: {counts}")
-    if any(n == 0 for n in counts.values()):
-        raise AssertionError(f"a kernel of the {kind} path never launched: {counts}")
+    log(f"kernel launches during the served {model} {kind} requests: {counts}")
+    if any((counts[name] == 0) != (name in idle) for name in counts):
+        raise AssertionError(f"the {model} {kind} path launched {counts}; expected zero "
+                             f"exactly for {list(idle)}")
     return counts
+
+
+class _Server:
+    """The port's v1 app behind the first-party HTTP server, on a private
+    event-loop thread."""
+
+    def __init__(self, out_dir: str, models, **app_kw):
+        from image_to_pointcloud_tpu.serve.http import HttpServer
+        from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
+
+        self.loop = asyncio.new_event_loop()
+        self.app = create_v1_app(output_dir=out_dir, models=models, durable_jobs=False,
+                                 **app_kw)
+        self.server = HttpServer(self.app.router, "127.0.0.1", 0)
+        self.loop.run_until_complete(self.server.start())
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.server.bound_port}"
+
+    def stop(self) -> None:
+        _stop(self.loop, self.thread, self.server, self.app)
 
 
 def phase_server(out_dir: str, models) -> dict[str, int]:
-    from image_to_pointcloud_tpu.serve.http import HttpServer
-    from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
-
     counts: dict[str, int] = {}
-    for kind in ("png", "jpeg"):
-        loop = asyncio.new_event_loop()
-        app = create_v1_app(output_dir=out_dir, models=models, durable_jobs=False,
-                            jpeg_device_decode=kind == "jpeg")
-        server = HttpServer(app.router, "127.0.0.1", 0)
-        loop.run_until_complete(server.start())
-        thread = threading.Thread(target=loop.run_forever, daemon=True)
-        thread.start()
-        try:
-            path_counts = _served_requests(f"http://127.0.0.1:{server.bound_port}", kind)
-            for name, n in path_counts.items():
-                counts[name] = counts.get(name, 0) + n
-        finally:
-            _stop(loop, thread, server, app)
+    servers = {"png": _Server(out_dir, models), "jpeg": None}
+    try:
+        servers["jpeg"] = _Server(out_dir, models, jpeg_device_decode=True)
+        for kind, model, n, idle in SERVED_PATHS:
+            t0 = time.perf_counter()
+            path_counts = _served_requests(servers[kind].base, kind, model, n, idle)
+            for name, c in path_counts.items():
+                counts[name] = counts.get(name, 0) + c
+            log(f"served path {model} {kind}: {time.perf_counter() - t0:.1f} s")
+        for name in ("dpt-large", "zoedepth"):
+            if not models.random_weights[name]:
+                raise AssertionError(f"{name} was expected to serve the random init")
+        phase_triposr(servers["png"].base)
+    finally:
+        for srv in servers.values():
+            if srv is not None:
+                srv.stop()
     if not models.get("depth-anything-v2").quantized_transfer:
         raise AssertionError("the server on the card did not default to the quantized bundle")
     return counts
+
+
+def phase_triposr(base: str) -> None:
+    """A dummy-model request, and the dummy graphs on the card against the
+    CPU, bit for bit."""
+    from image_to_pointcloud_tpu_torch.pipeline import graph
+
+    lat, st, ply = _request(base, _png(518, 518, 3), model="triposr")
+    n = st["results"]["pointCloud"]["points"]
+    _check_ply(ply, n)
+    if n != 130 * 130:
+        raise AssertionError(f"triposr returned {n} points, expected 130*130")
+    img = _frame(301, 402, 4)
+    pts_c, cols_c = graph.dummy_point_cloud_graph(img, "medium", "cuda")
+    pts, cols = graph.dummy_point_cloud_graph(img, "medium", "cpu")
+    same = (np.array_equal(pts_c, pts) and np.array_equal(cols_c, cols)
+            and np.array_equal(graph.demo_depth_map_graph(img, "cuda"),
+                               graph.demo_depth_map_graph(img, "cpu")))
+    log(f"triposr request 518x518: {lat * 1e3:.1f} ms, {n} points; dummy graphs card == CPU "
+        f"{same}")
+    if not same:
+        raise AssertionError("the dummy graphs on the card disagree with the CPU")
+
+
+def phase_profile(out_dir: str, models) -> None:
+    """/profile/start → one dpt-large request → /profile/stop: the Chrome
+    trace names the CUDA kernels the request ran."""
+    from pathlib import Path
+
+    srv = _Server(out_dir, models)
+    try:
+        _http(f"{srv.base}/profile/start", b"", "application/json")
+        _request(srv.base, _png(518, 518, 5), model="dpt-large")
+        stop = _http(f"{srv.base}/profile/stop", b"", "application/json")
+    finally:
+        srv.stop()
+    trace = Path(json.loads(stop)["trace"])
+    names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"}
+    found = {k: [n for n in names if k in n] for k in
+             ("flash_fwd_kernel", "grid_knn_kernel", "unproject_kernel")}
+    log(f"/profile trace {trace.relative_to(out_dir)}: {trace.stat().st_size} bytes, "
+        f"{len(names)} distinct CUDA kernels, ours: {found}")
+    if not all(found.values()):
+        raise AssertionError("the /profile trace does not name the port's three CUDA kernels")
 
 
 def _stop(loop, thread, server, app) -> None:
@@ -432,7 +581,15 @@ def phase_timing(models, reps: int = 20) -> None:
             f"(min {min(w) * 1e3:.2f}, max {max(w) * 1e3:.2f}) over {reps}, in turns")
 
 
+def timed(phase, *args):
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     smi = subprocess.run(
@@ -450,19 +607,21 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    k1 = phase_k1()
-    k2 = phase_k2()
-    k3 = phase_k3()
-    phase_codecs()
-    phase_jpeg_decode()
-    phase_slice()
+    k1 = timed(phase_k1)
+    k2 = timed(phase_k2)
+    k3 = timed(phase_k3)
+    timed(phase_codecs)
+    timed(phase_jpeg_decode)
+    timed(phase_slice)
 
     from image_to_pointcloud_tpu_torch.serve.models import ModelManager
 
     models = ModelManager("cuda")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-        counts = phase_server(out_dir, models)
-    phase_timing(models)
+        counts = timed(phase_server, out_dir, models)
+        timed(phase_timing, models)
+        timed(phase_profile, out_dir, models)
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")

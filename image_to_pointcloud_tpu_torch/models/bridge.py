@@ -1,18 +1,24 @@
 """Flax parameter tree → the port's ``state_dict``.
 
-The JAX package's DepthAnything parameters, given as a nested dict of
-numpy arrays (e.g. ``jax.tree_util.tree_map(np.asarray, params)``), map
-onto :class:`~image_to_pointcloud_tpu_torch.models.depth_anything.DepthAnything`
-by name, with these layout changes:
+The JAX package's parameters of any depth family (DepthAnything,
+DPTClassic, ZoeDepth), given as a nested dict of numpy arrays (e.g.
+``jax.tree_util.tree_map(np.asarray, params)``, or
+:mod:`.convert`'s HF mapping), map onto the port's model of the same
+family by name, with these layout changes:
 
-* Dense kernel ``(in, out)`` → Linear weight ``(out, in)``,
-* Conv kernel HWIO → Conv2d weight OIHW,
+* Dense kernel ``(in, out)`` → Linear weight ``(out, in)`` (the DA and
+  ViT ``q``/``k``/``v``, BEiT's bias-less ``k``, the ``readout{i}``
+  projections),
+* Conv kernel HWIO → Conv2d weight OIHW (``proj{i}``, ``down3``, the
+  fusion and head convs, ZoeDepth's ``mh_conv2``, ``seed_*``,
+  ``projector{i}``, ``attractor{i}``, ``cond_log_binomial/mlp{1,2}``),
 * ``up0``/``up1`` matmul kernels ``(k, k, in, out)`` → ConvTranspose2d
-  weight ``(in, out, k, k)``,
+  weight ``(in, out, k, k)``, under ``neck`` or ZoeDepth's
+  ``reassemble`` alike,
 * LayerNorm ``scale`` → ``weight``,
 * ``block{i}`` → ``blocks.{i}``; ``patch_embed``/``patch_bias`` → the
-  ``patch_embed`` Linear; ``ls1``/``ls2``, ``cls_token`` and
-  ``pos_embed`` carried across as they are.
+  ``patch_embed`` Linear; ``ls1``/``ls2``, ``cls_token``, ``pos_embed``
+  and BEiT's ``rel_pos_table`` carried across as they are.
 
 It imports no JAX, so it takes plain numpy.
 """
@@ -42,7 +48,8 @@ def _leaves(tree: Mapping, path=()):
 
 
 def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
-    """Nested ``{"backbone": ..., "neck": ...}`` numpy tree → state_dict."""
+    """Nested numpy tree (``{"backbone": ..., "neck": ...}`` or ZoeDepth's
+    flat head) → state_dict."""
     sd: dict[str, torch.Tensor] = {}
     for path, arr in _leaves(params):
         if path in _RENAMES:

@@ -1,10 +1,11 @@
-"""The Depth-Anything-V2 family: config, presets, model and its
-deterministic random initialization.
+"""The depth-model presets, the Depth-Anything-V2 model, the family
+dispatch and the deterministic random initialization.
 
-Counterpart of ``image_to_pointcloud_tpu/models/depth_anything.py``
-(DA-V2 presets only; the DPT-classic and ZoeDepth families are not
-ported yet). The model's dtype and device are the torch module's own:
-``.to(device, dtype)``.
+Counterpart of ``image_to_pointcloud_tpu/models/depth_anything.py`` and of
+``build_model`` in ``image_to_pointcloud_tpu/models/__init__.py``: every
+preset of the JAX package, in three families (Depth-Anything-V2,
+classic DPT = MiDaS 3.0, ZoeDepth). The model's dtype and device are the
+torch module's own: ``.to(device, dtype)``.
 """
 
 from __future__ import annotations
@@ -16,8 +17,12 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from image_to_pointcloud_tpu_torch.models.beit import BeitConfig
 from image_to_pointcloud_tpu_torch.models.dinov2 import DinoV2Backbone, DinoV2Config
 from image_to_pointcloud_tpu_torch.models.dpt import DPTConfig, DPTNeckHead
+from image_to_pointcloud_tpu_torch.models.dpt_classic import DPTClassic, DPTClassicConfig
+from image_to_pointcloud_tpu_torch.models.vit import ViTConfig
+from image_to_pointcloud_tpu_torch.models.zoedepth import ZoeDepth, ZoeDepthConfig
 
 __all__ = [
     "IMAGENET_MEAN",
@@ -25,6 +30,8 @@ __all__ = [
     "PRESETS",
     "DepthAnything",
     "DepthAnythingConfig",
+    "ModelConfig",
+    "build_model",
     "init_weights",
     "preset",
 ]
@@ -70,7 +77,7 @@ def _cfg(
 
 # DA-V2 intermediate-layer choices: S/B use blocks [2,5,8,11],
 # L uses [4,11,17,23] (0-indexed).
-PRESETS: dict[str, DepthAnythingConfig] = {
+PRESETS: dict[str, "ModelConfig"] = {
     "depth-anything-v2-small": _cfg(384, 12, 6, (2, 5, 8, 11), (48, 96, 192, 384), 64),
     "depth-anything-v2-base": _cfg(768, 12, 12, (2, 5, 8, 11), (96, 192, 384, 768), 128),
     "depth-anything-v2-large": _cfg(1024, 24, 16, (4, 11, 17, 23), (256, 512, 1024, 1024), 256),
@@ -83,9 +90,31 @@ PRESETS: dict[str, DepthAnythingConfig] = {
 }
 # Canonical alias used by the reference API (`model=depth-anything-v2`).
 PRESETS["depth-anything-v2"] = PRESETS["depth-anything-v2-small"]
+# A labelled stand-in, as in the JAX package: MiDaS-small (v2.1,
+# EfficientNet-lite) is served by the DA-class model of matching size.
+PRESETS["midas-small"] = PRESETS["depth-anything-v2-small"]
+# Classic DPT: 'dpt-large' is the released Intel/dpt-large layout (ViT-L/16
+# at 384²), which MiDaS 3.0 is; 'dpt-base' the same at ViT-B scale.
+PRESETS["dpt-large"] = DPTClassicConfig()
+PRESETS["dpt-base"] = DPTClassicConfig(
+    backbone=ViTConfig(hidden_size=768, num_layers=12, num_heads=12, out_layers=(2, 5, 8, 11)),
+    neck_hidden_sizes=(96, 192, 384, 768),
+)
+PRESETS["midas"] = PRESETS["dpt-large"]
+# ZoeDepth: 'zoedepth' is the released Intel/zoedepth-nyu-kitti layout
+# (BEiT-L/16-384); 'zoedepth-small' the same at BEiT-base scale.
+PRESETS["zoedepth"] = ZoeDepthConfig()
+PRESETS["zoedepth-small"] = ZoeDepthConfig(
+    backbone=BeitConfig(
+        hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072,
+        out_layers=(3, 6, 9, 12),
+    ),
+)
+
+ModelConfig = DepthAnythingConfig | DPTClassicConfig | ZoeDepthConfig
 
 
-def preset(name: str) -> DepthAnythingConfig:
+def preset(name: str) -> ModelConfig:
     try:
         return PRESETS[name]
     except KeyError:
@@ -108,6 +137,15 @@ class DepthAnything(nn.Module):
         return self.neck(self.backbone(pixels)).float()
 
 
+def build_model(cfg: ModelConfig) -> nn.Module:
+    """The model of the family that ``cfg`` selects."""
+    if isinstance(cfg, ZoeDepthConfig):
+        return ZoeDepth(cfg)
+    if isinstance(cfg, DPTClassicConfig):
+        return DPTClassic(cfg)
+    return DepthAnything(cfg)
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     # Flax's lecun_normal: a normal truncated at ±2σ, rescaled so the
     # variance is 1/fan_in.
@@ -116,14 +154,18 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 
 @torch.no_grad()
-def init_weights(model: DepthAnything, gen: torch.Generator) -> DepthAnything:
-    """Deterministic random init with the JAX model's initializer
-    distributions (Flax defaults; the numbers differ, the statistics do
-    not): lecun-normal matmul/conv weights, zero biases, unit LayerNorm
-    and LayerScale, N(0, 0.02) CLS token and position embeddings."""
+def init_weights(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Deterministic random init with the JAX models' initializer
+    distributions (Flax's; the numbers differ, the statistics do not):
+    lecun-normal matmul/conv weights, zero biases, unit LayerNorm and
+    LayerScale, N(0, 0.02) CLS token and position embeddings, and for
+    BEiT a zero CLS token and zero relative-position tables."""
+    zero_cls = isinstance(model, ZoeDepth)
     for name, prm in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("cls_token", "pos_embed"):
+        if leaf == "rel_pos_table" or (leaf == "cls_token" and zero_cls):
+            nn.init.zeros_(prm)
+        elif leaf in ("cls_token", "pos_embed"):
             nn.init.normal_(prm, std=0.02, generator=gen)
         elif leaf in ("ls1", "ls2"):
             nn.init.ones_(prm)

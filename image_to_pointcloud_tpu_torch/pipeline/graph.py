@@ -5,11 +5,12 @@ Counterpart of ``image_to_pointcloud_tpu/pipeline/graph.py``'s
 
   [JPEG: sparse or dense DCT payload → scatter → dequant + IDCT +
   chroma upsample + colour] or uint8 RGB pixels → [area-downscale] →
-  bicubic resize + normalize → DINOv2-DPT forward → linear depth upscale
-  → robust normalize → [gaussian blur] → gray preview → pinhole
-  unprojection → packed (B, 8, N) point buffer → windowed grid-kNN
-  outlier mask (row 6) → [quantized bundle: depth codec + keep bits
-  + optional colours]
+  [ZoeDepth: reflect pad] → resize + normalize → depth forward (any
+  family: DA-V2, classic DPT, ZoeDepth) → [ZoeDepth: bicubic back to the
+  padded size, crop] → linear depth upscale → robust normalize →
+  [gaussian blur] → gray preview → pinhole unprojection → packed
+  (B, 8, N) point buffer → windowed grid-kNN outlier mask (row 6) →
+  [quantized bundle: depth codec + keep bits + optional colours]
 
 Two ingests: decoded pixels (:meth:`DepthPipeline.submit_batch`), and the
 hybrid JPEG device decode (:meth:`DepthPipeline.submit_batch_jpeg`), whose
@@ -23,6 +24,9 @@ The JAX package compiles one graph per shape signature; PyTorch runs
 eagerly, so there is no compile cache. :meth:`DepthPipeline.submit_batch`
 enqueues the work (asynchronous on CUDA) and :meth:`DepthPipeline.collect`
 brings the result to the host and splits it per image.
+
+The dummy models' graphs (:func:`dummy_point_cloud_graph`,
+:func:`demo_depth_map_graph`) are plain torch ops on the service's device.
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
-from image_to_pointcloud_tpu_torch.models.depth_anything import DepthAnything
 from image_to_pointcloud_tpu_torch.ops.colormap import PLASMA_RGB
 from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth
 from image_to_pointcloud_tpu_torch.ops.gaussian import gaussian_blur
@@ -66,6 +71,7 @@ from image_to_pointcloud_tpu_torch.pipeline.preprocess import (
     model_preprocess_spec,
     preprocess_for_model,
     processor_output_size,
+    reflect_pad_margins,
 )
 from image_to_pointcloud_tpu_torch.pipeline.transfer import (
     depth16_to_xyz,
@@ -85,6 +91,8 @@ __all__ = [
     "PipelineOptions",
     "PipelineResult",
     "default_quantized_transfer",
+    "demo_depth_map_graph",
+    "dummy_point_cloud_graph",
     "plan_jpeg_input",
     "plan_sparse_batch",
 ]
@@ -359,8 +367,9 @@ def plan_sparse_batch(jpegs: "list[JpegInput]") -> "tuple[int, int] | None":
 
 
 class DepthPipeline:
-    """The depth→point-cloud pipeline over one model on one device (the
-    model's own device and dtype: bf16 on CUDA for serving, f32 on CPU).
+    """The depth→point-cloud pipeline over one model of any family on one
+    device (the model's own device and dtype: bf16 on CUDA for serving,
+    f32 on CPU).
 
     ``quantized_transfer=None`` follows :func:`default_quantized_transfer`
     for the model's device. The bundle's depth codec is the 8×8-tiled
@@ -371,9 +380,9 @@ class DepthPipeline:
 
     def __init__(
         self,
-        model: DepthAnything,
+        model: nn.Module,
         *,
-        model_target: int | None = None,
+        model_target: "int | tuple[int, int] | None" = None,
         quantized_transfer: bool | None = None,
     ):
         self.model = model.eval()
@@ -425,21 +434,38 @@ class DepthPipeline:
         opts = options
         h0, w0 = in_hw
         h, w = _proc_hw(h0, w0)
+        # ZoeDepth reflect-pads the working image before the resize and
+        # crops the prediction back; (0, 0) for the other families.
+        pad_h, pad_w = reflect_pad_margins(self.cfg, h, w)
+        hp, wp = h + 2 * pad_h, w + 2 * pad_w
         mh, mw = processor_output_size(
-            h, w, self.model_target, multiple=self.size_multiple,
+            hp, wp, self.model_target, multiple=self.size_multiple,
             keep_aspect_ratio=self.keep_aspect,
         )
+        # The depth grid everything after the model sees: the model
+        # resolution, or the unpadded working size once the pad is cropped.
+        dmh, dmw = (h, w) if (pad_h or pad_w) else (mh, mw)
         step = DENSITY_STRIDES[opts.density]
-        pv_h, pv_w = _preview_hw(mh, mw)
+        pv_h, pv_w = _preview_hw(dmh, dmw)
 
         if tuple(img.shape[1:3]) != (h, w):
             # cv2 resizes the uint8 image (rounding); match it.
             img = resize_batched(img, (h, w), "area").round().clamp(0, 255)
+        img_in = img
+        if pad_h or pad_w:
+            img_in = F.pad(
+                img.permute(0, 3, 1, 2), (pad_w, pad_w, pad_h, pad_h), mode="reflect"
+            ).permute(0, 2, 3, 1)
         x = preprocess_for_model(
-            img, (mh, mw), mean=self.pixel_mean, std=self.pixel_std,
+            img_in, (mh, mw), mean=self.pixel_mean, std=self.pixel_std,
             method=self.resize_method,
         )
         depth = self.model(x)  # (B, mh, mw) f32
+        if pad_h or pad_w:
+            # ZoeDepth's post-process: bicubic (align_corners=False) back
+            # to the padded size, then the margins cropped.
+            depth = resize_planes(depth, (hp, wp), "bicubic_torch")
+            depth = depth[:, pad_h : hp - pad_h, pad_w : wp - pad_w]  # (B, h, w)
 
         # Point path: upscale to working size, re-normalize, [blur].
         dn_all = _normalize_each(resize_planes(depth, (h, w), "linear"), opts.invert_depth)
@@ -452,12 +478,12 @@ class DepthPipeline:
         # the reference's order.
         prev = None
         if preview:
-            if (mh, mw) == (h, w) and not opts.smooth_depth:
+            if (dmh, dmw) == (h, w) and not opts.smooth_depth:
                 dn_prev = dn_all
             else:
                 dn_prev = _normalize_each(depth, opts.invert_depth)
             prev = (dn_prev * 255.0).to(torch.uint8)
-            if (pv_h, pv_w) != (mh, mw):
+            if (pv_h, pv_w) != (dmh, dmw):
                 lut = torch.from_numpy(PLASMA_RGB).to(prev.device)
                 rgb = resize_batched(lut[prev.long()].float(), (pv_h, pv_w), "area")
                 prev = rgb.round().clamp(0, 255).to(torch.uint8)
@@ -828,3 +854,50 @@ class DepthPipeline:
             [jpeg], depth_scales=depth_scale, options=options, want_preview=want_preview
         )
         return self.collect(handle, want_preview=want_preview, want_packed=want_packed)[0]
+
+
+# ---------- dummy-model graphs (reference backend/app.py:567-607) ----------
+
+_DUMMY_STRIDES = {"low": 8, "medium": 4, "high": 2}
+_F32_5_OVER_255 = float(np.float32(5.0 / 255.0))
+_F32_1_OVER_100 = float(np.float32(1.0 / 100.0))
+
+
+def _gray(img: torch.Tensor) -> torch.Tensor:
+    """cv2 BGR→GRAY of RGB f32 values, rounded half to even as cv2's
+    uint8 conversion (and ``jnp.round``) round."""
+    return torch.round(img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114)
+
+
+@torch.inference_mode()
+def dummy_point_cloud_graph(
+    image_rgb_u8: np.ndarray, density: str, device: "str | torch.device" = "cpu"
+) -> tuple[np.ndarray, np.ndarray]:
+    """Intensity-as-depth fallback for the dummy models (reference
+    backend/app.py:567-587): (N, 3) f32 points and (N, 3) f32 colours of
+    the strided grid."""
+    h, w = image_rgb_u8.shape[:2]
+    step = _DUMMY_STRIDES[density]
+    sub = torch.from_numpy(np.ascontiguousarray(image_rgb_u8[::step, ::step])).to(device).float()
+    # z = (255 - gray) / 255 · 5, x = (u - w/2) / 100: XLA folds the JAX
+    # graph's constant divisions into one multiply each, by f32(5/255) and
+    # f32(1/100); the same multiplies give its bits.
+    z = (255.0 - _gray(sub)) * _F32_5_OVER_255
+    u = torch.arange(z.shape[1], dtype=torch.float32, device=z.device) * step
+    v = torch.arange(z.shape[0], dtype=torch.float32, device=z.device) * step
+    x = ((u - w / 2.0) * _F32_1_OVER_100).expand_as(z)
+    y = ((v - h / 2.0) * _F32_1_OVER_100)[:, None].expand_as(z)
+    pts = torch.stack([x.reshape(-1), y.reshape(-1), z.reshape(-1)], dim=1)
+    return pts.cpu().numpy(), sub.reshape(-1, 3).cpu().numpy()
+
+
+@torch.inference_mode()
+def demo_depth_map_graph(
+    image_rgb_u8: np.ndarray, device: "str | torch.device" = "cpu"
+) -> np.ndarray:
+    """Fake depth-map preview for the dummy models (reference
+    backend/app.py:589-607): gray → 15×15 Gaussian blur → inverted →
+    PLASMA, as (H, W, 3) u8."""
+    gray = _gray(torch.from_numpy(np.array(image_rgb_u8)).to(device).float())
+    inv = (255.0 - torch.round(gaussian_blur(gray, 15))).to(torch.uint8)
+    return PLASMA_RGB[inv.cpu().numpy()]

@@ -1,13 +1,16 @@
-"""Model-input preprocessing with HF DPT image-processor semantics.
+"""Model-input preprocessing with the HF image processors' semantics.
 
-Counterpart of ``image_to_pointcloud_tpu/pipeline/preprocess.py`` for the
-Depth-Anything family: a host-side integer size computation
-(:func:`processor_output_size`: keep aspect, multiples of 14, target 518)
-and a device-side PIL-bicubic resize + 1/255 rescale + ImageNet
-normalization (:func:`preprocess_for_model`).
+Counterpart of ``image_to_pointcloud_tpu/pipeline/preprocess.py``: the
+per-family parameters read off the model config
+(:func:`model_preprocess_spec`, :func:`reflect_pad_margins`), a host-side
+integer size computation (:func:`processor_output_size`) and a
+device-side resize + 1/255 rescale + mean/std normalization
+(:func:`preprocess_for_model`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -17,21 +20,39 @@ from image_to_pointcloud_tpu_torch.models.depth_anything import (
 )
 from image_to_pointcloud_tpu_torch.ops.resize import resize_batched
 
-__all__ = ["model_preprocess_spec", "preprocess_for_model", "processor_output_size"]
+__all__ = [
+    "model_preprocess_spec",
+    "preprocess_for_model",
+    "processor_output_size",
+    "reflect_pad_margins",
+]
+
+
+def reflect_pad_margins(cfg, h: int, w: int) -> tuple[int, int]:
+    """Per-side reflect-pad margins of the working size (h, w):
+    ``int(sqrt(dim/2) · pad_reflect_factor)`` for ZoeDepth, whose
+    processor pads before the resize and crops the prediction back; (0, 0)
+    for the families that pad nothing."""
+    f = getattr(cfg, "pad_reflect_factor", 0)
+    if not f:
+        return 0, 0
+    return int(math.sqrt(h / 2) * f), int(math.sqrt(w / 2) * f)
 
 
 def model_preprocess_spec(cfg, model_target=None):
-    """(target, multiple, mean, std, method, keep_aspect) of the DA family:
-    the HF DPT processor defaults (518, multiple-of-14, ImageNet stats,
-    PIL-bicubic resize, keep aspect ratio); ``model_target`` overrides the
-    518 target."""
+    """(target, multiple, mean, std, method, keep_aspect) of the config's
+    family. The DA family has no attributes and takes the HF DPT processor
+    defaults (518, multiple-of-14, ImageNet stats, PIL bicubic, keep
+    aspect); DPT-classic carries a fixed square 384 with 0.5/0.5 stats,
+    ZoeDepth (384, 512), multiple-of-32, 0.5/0.5 stats and align-corners
+    bilinear. ``model_target`` (an int or (h, w)) overrides the target."""
     return (
-        518 if model_target is None else model_target,
-        cfg.backbone.patch_size,
-        IMAGENET_MEAN,
-        IMAGENET_STD,
-        "bicubic_pil",
-        True,
+        model_target if model_target is not None else getattr(cfg, "native_target", 518),
+        getattr(cfg, "size_multiple", 14),
+        tuple(getattr(cfg, "pixel_mean", IMAGENET_MEAN)),
+        tuple(getattr(cfg, "pixel_std", IMAGENET_STD)),
+        getattr(cfg, "resize_method", "bicubic_pil"),
+        getattr(cfg, "keep_aspect_ratio", True),
     )
 
 

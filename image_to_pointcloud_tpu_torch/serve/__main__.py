@@ -3,8 +3,10 @@
 Serves the v1 API (the reference's ``backend/app.py`` contract) on the
 PyTorch pipeline. Defaults come from the JAX package's typed config tree
 (``core/config.py``: built-in defaults ← ``IPC_TPU_CONFIG`` JSON file ←
-``IPC_TPU_*`` env vars), then CLI flags. Flags of the JAX server whose
-paths are not ported yet are refused with a clear error.
+``IPC_TPU_*`` env vars), then CLI flags. ``--checkpoint-dir`` (or
+``IPC_TPU_CHECKPOINT_DIR``) points at HF-layout safetensors checkpoints.
+Flags of the JAX server whose paths are not ported yet are refused with a
+clear error.
 """
 
 from __future__ import annotations
@@ -61,19 +63,20 @@ def main() -> None:
         "the device does dequant, IDCT, chroma upsample and colour",
     )
     parser.add_argument("--log-json", action="store_true", default=cfg.log_json)
+    parser.add_argument(
+        "--checkpoint-dir", default=cfg.checkpoint_dir,
+        help="directory of HF-layout checkpoints, <dir>/<model>/model.safetensors "
+        "or <dir>/<model>.safetensors (default: IPC_TPU_CHECKPOINT_DIR; "
+        "without one, a deterministic random init)",
+    )
     # The JAX server's other paths: refused until ported.
     parser.add_argument("--generation", choices=["v1", "v2"], default="v1")
     parser.add_argument("--mesh", default=None)
-    parser.add_argument("--checkpoint-dir", default=None)
     args = parser.parse_args()
     if args.generation != "v1":
         parser.error(f"--generation {args.generation} {_NOT_PORTED}")
-    for flag, val in (
-        ("--mesh", args.mesh),
-        ("--checkpoint-dir", args.checkpoint_dir),
-    ):
-        if val:
-            parser.error(f"{flag} {_NOT_PORTED}")
+    if args.mesh:
+        parser.error(f"--mesh {_NOT_PORTED}")
 
     from image_to_pointcloud_tpu.serve.http import HttpServer
     from image_to_pointcloud_tpu.utils.logging import configure_logging
@@ -96,7 +99,7 @@ def main() -> None:
     async def run() -> None:
         app = create_v1_app(
             output_dir=args.output_dir,
-            models=ModelManager(args.device),
+            models=ModelManager(args.device, checkpoint_dir=args.checkpoint_dir),
             honor_fov=args.honor_fov,
             mesh_method=args.mesh_method,
             warmup_sizes=warmup_sizes,

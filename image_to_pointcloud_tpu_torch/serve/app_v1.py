@@ -15,9 +15,13 @@ package's own jax-free modules. With ``jpeg_device_decode`` a JPEG upload
 takes the hybrid ingest: the host only entropy-decodes it
 (:func:`~image_to_pointcloud_tpu_torch.pipeline.graph.plan_jpeg_input`)
 and the pixels materialize on the device; other uploads, and JPEGs the
-planner declines, are decoded to pixels on the host. Not ported yet, and
-answered with HTTP 501: the dummy ``triposr``/``instantmesh`` graphs and
-the ``/profile`` routes.
+planner declines, are decoded to pixels on the host. Every depth preset
+of the model manager is served (``model=`` Depth-Anything-V2, ``dpt-large``
+and the classic-DPT family, ``zoedepth``); the reference's dummy models
+``triposr``/``instantmesh`` run their intensity-as-depth graphs on the
+service's device. ``POST /profile/start`` and ``/profile/stop`` bracket a
+``torch.profiler`` trace, written as a Chrome trace under
+``<output_dir>/traces`` on stop.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from image_to_pointcloud_tpu.io import (
     generate_gis_metadata,
@@ -38,7 +43,7 @@ from image_to_pointcloud_tpu.io import (
     write_ply_points,
     write_xyz,
 )
-from image_to_pointcloud_tpu.io.image import decode_image_rgb, png_data_url_palette
+from image_to_pointcloud_tpu.io.image import decode_image_rgb, png_data_url, png_data_url_palette
 from image_to_pointcloud_tpu.pipeline.meshing import (
     decimate_grid_mesh,
     grid_mesh_from_packed,
@@ -60,7 +65,12 @@ from image_to_pointcloud_tpu.serve.rawjson import (
 )
 from image_to_pointcloud_tpu_torch.ops.colormap import PLASMA_RGB
 from image_to_pointcloud_tpu_torch.ops.unproject import DENSITY_STRIDES
-from image_to_pointcloud_tpu_torch.pipeline.graph import PipelineOptions, plan_jpeg_input
+from image_to_pointcloud_tpu_torch.pipeline.graph import (
+    PipelineOptions,
+    demo_depth_map_graph,
+    dummy_point_cloud_graph,
+    plan_jpeg_input,
+)
 from image_to_pointcloud_tpu_torch.serve.batching import BatchingQueue
 from image_to_pointcloud_tpu_torch.serve.models import DUMMY_MODELS, ModelManager
 
@@ -104,8 +114,6 @@ MODEL_CARDS = [
         "quality": "Very High",
     },
 ]
-
-_NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
 
 
 def _parse_bool(v: str | bool, default: bool) -> bool:
@@ -179,6 +187,9 @@ class V1Service:
         self.warmup_sizes = warmup_sizes or []
         # Strong refs to in-flight job tasks (the loop holds weak ones).
         self._tasks: set = set()
+        # The running torch.profiler session of /profile/start, if any;
+        # started and stopped on the event loop's thread only.
+        self._profiler = None
         self.router = self._build_router()
 
     def _spawn(self, coro) -> None:
@@ -245,17 +256,19 @@ class V1Service:
                 message="Loading AI model...",
             )
             model_name = req["model"]
+            dummy = model_name in DUMMY_MODELS
             t0 = time.perf_counter()
-            pipeline = await loop.run_in_executor(
-                self.executor, self.models.get, model_name
-            )
+            if not dummy:
+                pipeline = await loop.run_in_executor(
+                    self.executor, self.models.get, model_name
+                )
             self.loaded_model_names.add(model_name)
             _mark("model_load", t0)
 
             await jobs.update(job_id, progress=20, message="Processing image...")
             t0 = time.perf_counter()
             image = None
-            if self.jpeg_device_decode:
+            if self.jpeg_device_decode and not dummy:
                 # Hybrid ingest: entropy-decode only; the pixels
                 # materialize on the device. None for non-JPEGs,
                 # unsupported streams and dense coefficients: those take
@@ -285,32 +298,47 @@ class V1Service:
                 fov=(req.get("fov") if self.honor_fov else None),
             )
 
-            await jobs.update(
-                job_id, progress=40, message="Estimating depth with AI..."
-            )
-            batcher = self._batchers.get(model_name)
-            if batcher is None:
-                batcher = BatchingQueue(
-                    pipeline, window_ms=self.batch_window_ms, max_batch=self.max_batch
+            res = None
+            if dummy:
+                await jobs.update(
+                    job_id, progress=40, message=f"Processing with {model_name}..."
                 )
-                self._batchers[model_name] = batcher
-            await jobs.update(
-                job_id, progress=60, message="Generating 3D point cloud..."
-            )
-            t0 = time.perf_counter()
-            # Packed grids are host-assembled only for grid-mesh output.
-            need_packed = (
-                req["output_format"].lower() in MESH_FORMATS
-                and self.mesh_method == "grid"
-            )
-            res = await batcher.submit(
-                image, req["depth_scale"], opts, want_packed=need_packed
-            )
-            _mark("inference_unproject_refine", t0)
-            t0 = time.perf_counter()
-            depth_data_url = png_data_url_palette(res.depth_preview_gray, PLASMA_RGB)
-            _mark("preview_encode", t0)
-            points, colors = res.points, res.colors
+                device = self.models.device
+                points, colors = await loop.run_in_executor(
+                    self.executor, dummy_point_cloud_graph, image,
+                    req["point_density"], device,
+                )
+                demo = await loop.run_in_executor(
+                    self.executor, demo_depth_map_graph, image, device
+                )
+                depth_data_url = png_data_url(demo)
+            else:
+                await jobs.update(
+                    job_id, progress=40, message="Estimating depth with AI..."
+                )
+                batcher = self._batchers.get(model_name)
+                if batcher is None:
+                    batcher = BatchingQueue(
+                        pipeline, window_ms=self.batch_window_ms, max_batch=self.max_batch
+                    )
+                    self._batchers[model_name] = batcher
+                await jobs.update(
+                    job_id, progress=60, message="Generating 3D point cloud..."
+                )
+                t0 = time.perf_counter()
+                # Packed grids are host-assembled only for grid-mesh output.
+                need_packed = (
+                    req["output_format"].lower() in MESH_FORMATS
+                    and self.mesh_method == "grid"
+                )
+                res = await batcher.submit(
+                    image, req["depth_scale"], opts, want_packed=need_packed
+                )
+                _mark("inference_unproject_refine", t0)
+                t0 = time.perf_counter()
+                depth_data_url = png_data_url_palette(res.depth_preview_gray, PLASMA_RGB)
+                _mark("preview_encode", t0)
+                points, colors = res.points, res.colors
 
             await jobs.update(job_id, progress=80, message="Saving point cloud...")
 
@@ -506,6 +534,8 @@ class V1Service:
                     dv, dc, df = dec
             return filepath, self._mesh_preview(dv, dc, df)
 
+        if res is None:
+            raise ValueError("Mesh output requires a depth model")
         verts, vcols, faces, _ = grid_mesh_from_packed(res.packed, res.grid_hw)
         filepath = write_ply_mesh(
             base + ".ply", verts, faces, colors=vcols,
@@ -565,8 +595,6 @@ class V1Service:
                 }
             except ValueError as e:
                 raise HTTPError(422, f"Invalid parameter value: {e}") from None
-            if request["model"] in DUMMY_MODELS:
-                raise HTTPError(501, f"model {request['model']!r} {_NOT_PORTED}")
             job = await svc.jobs.create(message="Job queued", model=request["model"])
             svc._spawn(svc._process_job(job.job_id, data, request))
             return json_response({"job_id": job.job_id, "status": "queued"})
@@ -680,11 +708,35 @@ class V1Service:
 
         @r.post("/profile/start")
         async def profile_start(req: Request):
-            raise HTTPError(501, f"/profile {_NOT_PORTED}")
+            """Start a torch.profiler trace: CPU ops of this thread, and
+            with CUDA every kernel on the card (CUPTI traces the device,
+            whichever thread launched)."""
+            trace_dir = svc.output_dir / "traces"
+            if svc._profiler is not None:
+                raise HTTPError(400, "A trace is already in progress")
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if svc.models.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            svc._profiler = torch.profiler.profile(activities=activities)
+            svc._profiler.start()
+            return json_response({"tracing": True, "dir": str(trace_dir)})
 
         @r.post("/profile/stop")
         async def profile_stop(req: Request):
-            raise HTTPError(501, f"/profile {_NOT_PORTED}")
+            prof, svc._profiler = svc._profiler, None
+            if prof is None:
+                raise HTTPError(400, "No trace in progress")
+            trace_dir = svc.output_dir / "traces"
+            trace_dir.mkdir(parents=True, exist_ok=True)
+            path = trace_dir / f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{id(prof):x}.json"
+
+            # Stopped on the thread that started it (the event loop's):
+            # the profiler is bound to its starting thread.
+            prof.stop()
+            await asyncio.get_running_loop().run_in_executor(
+                svc.executor, prof.export_chrome_trace, str(path)
+            )
+            return json_response({"tracing": False, "trace": str(path)})
 
         return r
 

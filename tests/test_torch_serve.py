@@ -234,14 +234,79 @@ def test_concurrent_requests_share_batches(base):
         assert _poll(base, jid)["status"] == "completed"
 
 
-def test_unported_paths_answer_501(base):
+def _dummy_job(base, model, img):
     r = httpx.post(
-        f"{base}/process?model=triposr",
-        files={"file": ("t.png", _png(20, 20), "image/png")},
+        f"{base}/process?model={model}&output_format=ply&point_density=medium",
+        files={"file": ("t.png", encode_png(img), "image/png")},
         timeout=30,
     )
-    assert r.status_code == 501 and "not ported" in r.text
-    assert httpx.post(f"{base}/profile/start", timeout=30).status_code == 501
+    assert r.status_code == 200, r.text
+    final = _poll(base, r.json()["job_id"])
+    assert final["status"] == "completed", final["message"]
+    return final
+
+
+def test_unported_paths_answer_501(base):
+    """The dummy models and /profile, which the port once refused with
+    HTTP 501, now answer as the JAX server does."""
+    img = np.random.default_rng(3).integers(0, 256, (20, 20, 3), dtype=np.uint8)
+    assert _dummy_job(base, "triposr", img)["results"]["pointCloud"]["points"] == 25
+    r = httpx.post(f"{base}/profile/start", timeout=30)
+    assert r.status_code == 200, r.text
+    assert httpx.post(f"{base}/profile/stop", timeout=60).status_code == 200
+
+
+@pytest.mark.parametrize("model", ["triposr", "instantmesh"])
+def test_dummy_models_match_jax(base, model):
+    """The dummy graphs' points, colours and demo preview through the
+    server are bit-identical to the JAX package's graphs."""
+    import jax.numpy as jnp
+
+    from image_to_pointcloud_tpu.io.image import png_data_url
+    from image_to_pointcloud_tpu.pipeline import graph as jgraph
+
+    img = np.random.default_rng(4).integers(0, 256, (37, 53, 3), dtype=np.uint8)
+    final = _dummy_job(base, model, img)
+    pts, cols = jgraph.dummy_point_cloud_graph(img, "medium")
+    res = final["results"]
+    assert res["pointCloud"]["points"] == len(pts)
+    vert = read_ply(httpx.get(f"{base}{res['downloadUrl']}", timeout=60).content)["vertex"]
+    np.testing.assert_array_equal(np.stack([vert["x"], vert["y"], vert["z"]], axis=1), pts)
+    np.testing.assert_array_equal(
+        np.stack([vert["red"], vert["green"], vert["blue"]], axis=1), cols.astype(np.uint8)
+    )
+    demo = np.asarray(jgraph.demo_depth_map_graph(jnp.asarray(img)))
+    assert res["depthMap"] == png_data_url(demo)
+
+
+def test_profile_writes_a_trace(tmp_path):
+    """/profile/start → a request → /profile/stop writes a Chrome trace
+    under <output_dir>/traces."""
+    import json
+
+    srv = _ServerThread(tmp_path)
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        assert httpx.post(f"{base}/profile/start", timeout=30).status_code == 200
+        assert httpx.post(f"{base}/profile/start", timeout=30).status_code == 400
+        r = httpx.post(
+            f"{base}/process?output_format=ply",
+            files={"file": ("t.png", _png(40, 40), "image/png")},
+            timeout=30,
+        )
+        assert _poll(base, r.json()["job_id"])["status"] == "completed"
+        r = httpx.post(f"{base}/profile/stop", timeout=60)
+        assert r.status_code == 200, r.text
+        trace = Path(r.json()["trace"])
+        assert trace.parent == tmp_path / "traces" and trace.exists()
+        assert "traceEvents" in json.loads(trace.read_text())
+    finally:
+        srv.stop()
+
+
+def test_profile_stop_without_start_is_400(base):
+    r = httpx.post(f"{base}/profile/stop", timeout=30)
+    assert r.status_code == 400 and "No trace in progress" in r.text
 
 
 def test_contract_routes(base):
@@ -263,15 +328,17 @@ def test_contract_routes(base):
 
 def test_port_imports_no_jax():
     """Every module of the port, the server entry point included, imports
-    without JAX or Flax. A subprocess, because this test process has JAX
-    loaded (tests/conftest.py)."""
+    without JAX, Flax, transformers or safetensors (none of them is on the
+    card machine). A subprocess, because this test process has JAX loaded
+    (tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import image_to_pointcloud_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "assert 'image_to_pointcloud_tpu_torch.serve.__main__' in names, names\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'transformers', 'safetensors'))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -284,9 +351,10 @@ def test_port_imports_no_jax():
 def test_server_refuses_unported_flags():
     proc = subprocess.run(
         [sys.executable, "-m", "image_to_pointcloud_tpu_torch.serve",
-         "--jpeg-device-decode", "--mesh", "data=2"],
+         "--jpeg-device-decode", "--checkpoint-dir", "ckpt", "--mesh", "data=2"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 2
     assert "--mesh is not ported" in proc.stderr
     assert "--jpeg-device-decode is not ported" not in proc.stderr
+    assert "--checkpoint-dir is not ported" not in proc.stderr

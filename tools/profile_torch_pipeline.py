@@ -1,10 +1,10 @@
 """Where a 518² request's time goes in the PyTorch port, on one GPU.
 
     PYTHONPATH=. python3 tools/profile_torch_pipeline.py [--batch 1] [--iters 10]
-        [--ingest png|jpeg] [--transfer quantized|f32]
+        [--ingest png|jpeg] [--transfer quantized|f32] [--model depth-anything-v2]
 
-Runs ``DepthPipeline`` with Depth-Anything-V2-Small in bf16 (random
-init) on 518×518 images, decoded pixels or q88 JPEGs through the hybrid
+Runs ``DepthPipeline`` with a served preset (``--model``; default
+Depth-Anything-V2-Small) in bf16 (random init) on 518×518 images, decoded pixels or q88 JPEGs through the hybrid
 device decode, with the quantized bundle (the card's default) or the f32
 return: the host wall time of submit+collect (what a request waits for),
 then one ``torch.profiler`` window over ``--iters`` runs for device time
@@ -29,6 +29,7 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--ingest", choices=["png", "jpeg"], default="png")
     ap.add_argument("--transfer", choices=["quantized", "f32"], default="quantized")
+    ap.add_argument("--model", default="depth-anything-v2", help="a preset, e.g. dpt-large, zoedepth")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_pipeline: CUDA is not available")
@@ -41,8 +42,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip())
-    served = ModelManager("cuda").get("depth-anything-v2")
-    pipe = DepthPipeline(served.model, quantized_transfer=args.transfer == "quantized")
+    served = ModelManager("cuda").get(args.model)
+    pipe = DepthPipeline(served.model, model_target=served.model_target, quantized_transfer=args.transfer == "quantized")
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:518, 0:518]
     imgs = [
@@ -77,7 +78,7 @@ def main() -> None:
         run()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    print(f"{args.ingest}/{args.transfer} batch {args.batch}: submit+collect median {wall * 1e3:.2f} ms "
+    print(f"{args.model} {args.ingest}/{args.transfer} batch {args.batch}: submit+collect median {wall * 1e3:.2f} ms "
           f"({wall * 1e3 / args.batch:.2f} ms/image) over {args.iters}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
