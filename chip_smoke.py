@@ -4,14 +4,20 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 
 1. device: CUDA must be available; the card's name and power limit.
 2. build: the CUDA kernels from ``image_to_pointcloud_tpu_torch/csrc``.
-3. K1 flash attention vs its plain version at the flagship shape
-   (2, 6, 1370, 64) bf16, at classic DPT-Large's (1, 16, 577, 64) bf16
-   (both with CUDA-event times) and at a ragged N=200.
-4. K2 grid-kNN vs its plain version at (2, 259, 259, 3) — 518² at
-   medium density — and at the odd grid (1, 150, 200, 3).
-5. K3 unproject vs its plain version, bit for bit, at (2, 518, 518)
-   step 2, at step 1 with a fov, and at a ragged (1, 301, 401) step 4,
-   with CUDA-event times at the first shape.
+3. K1 flash attention vs its plain version: bf16 (the tensor-core
+   kernel) at DA-V2-Small's (1, 6, 1370, 64) and (2, 6, 1370, 64), at
+   classic DPT-Large's (1, 16, 577, 64) and at a ragged (1, 3, 65, 64);
+   f32 (the SIMT kernel) at (2, 6, 1370, 64). Timed at the two serving
+   shapes: device time, host-inclusive time, the plain version's, and
+   ``scaled_dot_product_attention``'s on the same tensors (the yardstick,
+   never called by the port), beside the bound.
+4. K2 grid-kNN vs its plain version at (1, 259, 259, 3) — 518² at
+   medium density, one request — at (2, 259, 259, 3) and at the odd
+   grid (1, 150, 200, 3); timed at the first, beside its bound.
+5. K3 unproject vs its plain version, bit for bit, at (1, 518, 518)
+   step 2 (one request), at (2, 518, 518) step 2, at step 1 with a fov,
+   and at a ragged (1, 301, 401) step 4; timed at the first, beside its
+   bound.
 6. the transfer codecs on the card vs the CPU, byte for byte.
 7. the JPEG device decode of a q88 4:2:0 518² frame: sparse vs dense
    payload bit for bit, card vs CPU within 1 level, vs PIL within 3.
@@ -28,7 +34,9 @@ Phases (any failure exits non-zero, and the result lines are not printed):
    384², K1 in all 24 layers) and ``zoedepth`` (BEiT-L/16, 518² padded
    to 614² and run at 512², whose biased attention is plain torch ops,
    so K1 must stay at zero) at full width, random init, one cold and
-   three 518² PNG → PLY requests each.
+   three 518² PNG → PLY requests each. Each path must launch K1 exactly
+   12 (DA-V2), 24 (``dpt-large``) or 0 (``zoedepth``) times a request,
+   and K2 and K3 once.
 10. a ``triposr`` request, and the dummy graphs on the card vs the CPU,
     bit for bit.
 11. batch-1 ``submit_batch`` + ``collect`` medians, in turns: PNG with
@@ -37,11 +45,19 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     request: the Chrome trace must exist and name the CUDA kernels. Last,
     so that no profiler session precedes the timings of phase 11.
 
-Each phase logs its wall time.
+Each phase logs its wall time. Kernel times: ``device`` is a CUDA graph
+of 20 captured calls, replayed and timed with CUDA events (no host time
+between launches; the median of 5 replays, per call); ``host-inclusive``
+is 50 back-to-back calls between two CUDA events, wrapper and launch
+path included. A bound is the larger of the bytes the call must move
+(inputs read once, outputs written once) over 3.35 TB/s and its
+operations over the H100's peak for their type (989 TFLOP/s bf16 on the
+tensor cores, 67 TFLOP/s f32 on the FP32 cores).
 
 It prints the per-kernel JSON line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. It needs
-the repository checkout (run it from its root) and imports no JAX.
+the repository checkout (run it from its root) and imports no JAX and
+nothing of the JAX package (it checks ``sys.modules`` at the end).
 """
 
 from __future__ import annotations
@@ -83,7 +99,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# The H100's published peaks (NVIDIA's data sheet, SXM, dense).
+HBM_BYTES_S, BF16_TC_FLOP_S, F32_FLOP_S = 3.35e12, 989e12, 67e12
+
+
 def cuda_time_ms(fn, iters: int) -> float:
+    """Host-inclusive time of one call: ``iters`` back-to-back calls
+    between two CUDA events."""
     fn()  # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -96,13 +118,60 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_time_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call: a CUDA graph of ``calls`` captured calls,
+    replayed and timed with CUDA events; the median replay, per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, rate: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak for their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _timed_kernel(name: str, kernel, plain, library=None) -> dict:
+    """The kernel's device and host-inclusive times, the plain version's,
+    and the library call's device time where there is one."""
+    out = {"ms": device_time_ms(kernel), "host_ms": cuda_time_ms(kernel, 50),
+           "plain_ms": cuda_time_ms(plain, 5),
+           "library_ms": None if library is None else device_time_ms(library)}
+    out["device_ms"] = out["ms"]
+    lib = "none" if library is None else f"{out['library_ms']:.5f} ms"
+    log(f"{name}: device {out['ms']:.5f} ms, host-inclusive {out['host_ms']:.5f} ms, "
+        f"plain {out['plain_ms']:.5f} ms, library {lib}")
+    return out
+
+
 def phase_k1() -> dict:
     from image_to_pointcloud_tpu_torch.models.attention import attention_plain, flash_attention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {}
-    for shape, dtype in [((2, 6, 1370, 64), torch.bfloat16), ((1, 16, 577, 64), torch.bfloat16),
-                         ((1, 6, 200, 64), torch.bfloat16), ((2, 6, 1370, 64), torch.float32)]:
+    timed = {}
+    for shape, dtype in [((1, 6, 1370, 64), torch.bfloat16), ((2, 6, 1370, 64), torch.bfloat16),
+                         ((1, 16, 577, 64), torch.bfloat16), ((1, 3, 65, 64), torch.bfloat16),
+                         ((2, 6, 1370, 64), torch.float32)]:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
         o = flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -113,13 +182,28 @@ def phase_k1() -> dict:
         log(f"K1 {tuple(shape)} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol:g})")
         if not err <= tol:
             raise AssertionError(f"K1 disagrees with its plain version at {shape} {dtype}")
-        if dtype == torch.bfloat16 and shape[2] > 200:
-            ms = cuda_time_ms(lambda: flash_attention(q, k, v), 50)
-            plain_ms = cuda_time_ms(lambda: attention_plain(q, k, v, 1.0 / 8.0), 50)
-            log(f"K1 {tuple(shape)} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if shape == (2, 6, 1370, 64):
-                out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    return out
+        if dtype == torch.bfloat16 and shape in ((1, 6, 1370, 64), (1, 16, 577, 64)):
+            b, h, n, d = shape
+            flops = 4 * b * h * n * n * d  # Q·Kᵀ and P·V, 2 per multiply-add
+            res = {"shape": list(shape), "max_abs_err": err, **_timed_kernel(
+                f"K1 {shape} bf16", lambda: flash_attention(q, k, v),
+                lambda: attention_plain(q, k, v, 1.0 / 8.0),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
+                **bound(4 * b * h * n * d * 2, flops, BF16_TC_FLOP_S)}
+            log(f"K1 {shape} bf16: {flops / 1e9:.3f} GFLOP, {b * h * n * n / 1e6:.2f} M "
+                f"exponentials, {4 * b * h * n * d * 2 / 1e6:.2f} MB: bound {res['bound_ms']:.5f} "
+                f"ms ({res['bound_by']})")
+            timed[shape] = res
+    # The line's numbers are DA-V2-Small's at one image; classic DPT-Large's ride along.
+    return {**timed[(1, 6, 1370, 64)], "also": [timed[(1, 16, 577, 64)]]}
+
+
+def _knn_taps(hh: int, ww: int, r: int = 4) -> int:
+    """Window taps inside an (hh, ww) grid, summed over its points."""
+    def line(n):
+        return sum(min(i + r, n - 1) - max(i - r, 0) + 1 for i in range(n))
+
+    return line(hh) * line(ww)
 
 
 def phase_k2() -> dict:
@@ -130,8 +214,12 @@ def phase_k2() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for shape in [(2, 259, 259, 3), (1, 150, 200, 3)]:
-        pts = torch.rand(shape, generator=gen, device="cuda") * 3
+    for shape in [(1, 259, 259, 3), (2, 259, 259, 3), (1, 150, 200, 3)]:
+        b, hh, ww, _ = shape
+        # As the main path hands it over: rows 0-2 of the planar (B, 8, N)
+        # point buffer, read in place.
+        packed = torch.rand((b, 8, hh * ww), generator=gen, device="cuda") * 3
+        pts = packed[:, :3].transpose(1, 2).reshape(b, hh, ww, 3)
         o = grid_knn_mean_distances_cuda(pts)
         torch.cuda.synchronize()
         ref = grid_knn_mean_distances_plain(pts)
@@ -142,11 +230,18 @@ def phase_k2() -> dict:
             f"bit-identical {torch.equal(o, ref)}")
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version at {shape}")
-        if shape == (2, 259, 259, 3):
-            ms = cuda_time_ms(lambda: grid_knn_mean_distances_cuda(pts), 50)
-            plain_ms = cuda_time_ms(lambda: grid_knn_mean_distances_plain(pts), 5)
-            log(f"K2 (2, 259, 259, 3): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        if shape == (1, 259, 259, 3):
+            # Per tap inside the grid: 3 sub, 3 mul, 2 add, 1 compare and
+            # the 20-deep min/max cascade (40); per point ~100 for the mean
+            # of the square roots. f32 on the FP32 cores.
+            ops = b * (_knn_taps(hh, ww) * 49 + hh * ww * 100)
+            res = {"shape": list(shape), "max_abs_err": err, **_timed_kernel(
+                f"K2 {shape}", lambda: grid_knn_mean_distances_cuda(pts),
+                lambda: grid_knn_mean_distances_plain(pts)),
+                **bound(b * hh * ww * (12 + 4), ops, F32_FLOP_S)}
+            log(f"K2 {shape}: {ops / 1e6:.1f} M ops, {b * hh * ww * 16 / 1e6:.2f} MB: bound "
+                f"{res['bound_ms']:.5f} ms ({res['bound_by']})")
+            out = res
     return out
 
 
@@ -155,8 +250,8 @@ def phase_k3() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
-    for (b, h, w), step, fov in [((2, 518, 518), 2, None), ((1, 400, 300), 1, 70.0),
-                                 ((1, 301, 401), 4, None)]:
+    for (b, h, w), step, fov in [((1, 518, 518), 2, None), ((2, 518, 518), 2, None),
+                                 ((1, 400, 300), 1, 70.0), ((1, 301, 401), 4, None)]:
         d = torch.rand((b, h, w), generator=gen, device="cuda")
         d[:, 7, ::5] = 0.0  # the z == 0 epsilon path
         img = torch.rand((b, h, w, 3), generator=gen, device="cuda").mul(255).round()
@@ -170,11 +265,17 @@ def phase_k3() -> dict:
             f"bit-identical {torch.equal(o, ref)}")
         if not torch.equal(o, ref):
             raise AssertionError(f"K3 disagrees with its plain version at {(b, h, w)} step {step}")
-        if (b, h, w) == (2, 518, 518):
-            ms = cuda_time_ms(lambda: unproject_cuda(d, img, **kw), 50)
-            plain_ms = cuda_time_ms(lambda: unproject_plain(d, img, **kw), 50)
-            log(f"K3 (2, 518, 518) step 2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        if (b, h, w) == (1, 518, 518):
+            # Bytes: the sampled depth (4 B) and f32 RGB (12 B) of each
+            # output point, and its 8 f32 output rows; ~10 flops a point.
+            n = b * (-(-h // step)) * (-(-w // step))
+            res = {"shape": [b, h, w], "step": step, "max_abs_err": err, **_timed_kernel(
+                f"K3 ({b}, {h}, {w}) step {step}", lambda: unproject_cuda(d, img, **kw),
+                lambda: unproject_plain(d, img, **kw)),
+                **bound(n * (16 + 32), n * 10, F32_FLOP_S)}
+            log(f"K3 ({b}, {h}, {w}) step {step}: {n * 48 / 1e6:.2f} MB: bound "
+                f"{res['bound_ms']:.5f} ms ({res['bound_by']})")
+            out = res
     return out
 
 
@@ -216,7 +317,7 @@ def phase_jpeg_decode() -> None:
 
     from PIL import Image
 
-    from image_to_pointcloud_tpu import native
+    from image_to_pointcloud_tpu_torch import native
     from image_to_pointcloud_tpu_torch.pipeline import graph
 
     if not native.available():
@@ -381,7 +482,7 @@ def _request(base: str, data: bytes, ctype: str = "image/png",
 
 
 def _check_ply(data: bytes, n: int) -> None:
-    from image_to_pointcloud_tpu.io import read_ply
+    from image_to_pointcloud_tpu_torch.io import read_ply
 
     v = read_ply(data)["vertex"]
     xyz = np.stack([v["x"], v["y"], v["z"]], axis=1)
@@ -391,23 +492,24 @@ def _check_ply(data: bytes, n: int) -> None:
 
 
 def _png(h: int, w: int, seed: int) -> bytes:
-    from image_to_pointcloud_tpu.io.image import encode_png
+    from image_to_pointcloud_tpu_torch.io.image import encode_png
 
     return encode_png(_frame(h, w, seed))
 
 
 # The main paths the server drives: (ingest, model, 518² requests after
-# the cold one, kernels that must not launch).
+# the cold one, K1 launches per request: one per transformer layer).
 SERVED_PATHS = [
-    ("png", "depth-anything-v2", 5, ()),
-    ("jpeg", "depth-anything-v2", 5, ()),
-    ("png", "dpt-large", 3, ()),
+    ("png", "depth-anything-v2", 5, 12),
+    ("jpeg", "depth-anything-v2", 5, 12),
+    ("png", "dpt-large", 3, 24),
     # BEiT's attention carries an additive bias: plain torch ops, not K1.
-    ("png", "zoedepth", 3, ("flash_attention",)),
+    ("png", "zoedepth", 3, 0),
 ]
 
 
-def _served_requests(base: str, kind: str, model: str, n: int, idle: tuple) -> dict[str, int]:
+def _served_requests(base: str, kind: str, model: str, n: int, k1_per_request: int
+                     ) -> dict[str, int]:
     """One main path through the server: the launch counters are zeroed
     just before its requests and read just after."""
     from image_to_pointcloud_tpu_torch import cuda
@@ -437,12 +539,14 @@ def _served_requests(base: str, kind: str, model: str, n: int, idle: tuple) -> d
         log(f"{model} {kind} request {w}x{h} #{i}: {lat * 1e3:.1f} ms, "
             f"{st['results']['pointCloud']['points']} points, timings {st['timings']}")
     counts = {k.name: k.launches for k in cuda.KERNELS}
+    n_requests = n + len(extra)
     log(f"server p50 latency 518x518 {model} {kind.upper()} -> PLY: "
         f"{statistics.median(lats) * 1e3:.1f} ms over {len(lats)} sequential requests")
-    log(f"kernel launches during the served {model} {kind} requests: {counts}")
-    if any((counts[name] == 0) != (name in idle) for name in counts):
-        raise AssertionError(f"the {model} {kind} path launched {counts}; expected zero "
-                             f"exactly for {list(idle)}")
+    log(f"kernel launches during the {n_requests} served {model} {kind} requests: {counts}")
+    expected = {"flash_attention": k1_per_request * n_requests, "grid_knn": n_requests,
+                "unproject": n_requests}
+    if counts != expected:
+        raise AssertionError(f"the {model} {kind} path launched {counts}; expected {expected}")
     return counts
 
 
@@ -451,7 +555,7 @@ class _Server:
     event-loop thread."""
 
     def __init__(self, out_dir: str, models, **app_kw):
-        from image_to_pointcloud_tpu.serve.http import HttpServer
+        from image_to_pointcloud_tpu_torch.serve.http import HttpServer
         from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
 
         self.loop = asyncio.new_event_loop()
@@ -467,16 +571,21 @@ class _Server:
         _stop(self.loop, self.thread, self.server, self.app)
 
 
-def phase_server(out_dir: str, models) -> dict[str, int]:
+def phase_server(out_dir: str, models) -> tuple[dict[str, int], dict[str, dict[str, float]]]:
+    """Launch counts summed over the served paths, and per request of each
+    path."""
     counts: dict[str, int] = {}
+    per_request: dict[str, dict[str, float]] = {}
     servers = {"png": _Server(out_dir, models), "jpeg": None}
     try:
         servers["jpeg"] = _Server(out_dir, models, jpeg_device_decode=True)
-        for kind, model, n, idle in SERVED_PATHS:
+        for kind, model, n, k1_per_request in SERVED_PATHS:
             t0 = time.perf_counter()
-            path_counts = _served_requests(servers[kind].base, kind, model, n, idle)
+            path_counts = _served_requests(servers[kind].base, kind, model, n, k1_per_request)
+            n_requests = path_counts["unproject"]  # one launch a request
             for name, c in path_counts.items():
                 counts[name] = counts.get(name, 0) + c
+                per_request.setdefault(name, {})[f"{model} {kind}"] = c / n_requests
             log(f"served path {model} {kind}: {time.perf_counter() - t0:.1f} s")
         for name in ("dpt-large", "zoedepth"):
             if not models.random_weights[name]:
@@ -488,7 +597,7 @@ def phase_server(out_dir: str, models) -> dict[str, int]:
                 srv.stop()
     if not models.get("depth-anything-v2").quantized_transfer:
         raise AssertionError("the server on the card did not default to the quantized bundle")
-    return counts
+    return counts, per_request
 
 
 def phase_triposr(base: str) -> None:
@@ -529,7 +638,7 @@ def phase_profile(out_dir: str, models) -> None:
     names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]
              if e.get("cat") == "kernel"}
     found = {k: [n for n in names if k in n] for k in
-             ("flash_fwd_kernel", "grid_knn_kernel", "unproject_kernel")}
+             ("flash_fwd_bf16_wgmma_kernel", "grid_knn_kernel", "unproject_kernel")}
     log(f"/profile trace {trace.relative_to(out_dir)}: {trace.stat().st_size} bytes, "
         f"{len(names)} distinct CUDA kernels, ours: {found}")
     if not all(found.values()):
@@ -604,7 +713,7 @@ def main() -> int:
     cuda.library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for line in next(cuda.BUILD_DIR.glob("*.log")).read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     k1 = timed(phase_k1)
@@ -618,26 +727,28 @@ def main() -> int:
 
     models = ModelManager("cuda")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-        counts = timed(phase_server, out_dir, models)
+        counts, per_request = timed(phase_server, out_dir, models)
         timed(phase_timing, models)
         timed(phase_profile, out_dir, models)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     if any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules):
         raise AssertionError("JAX was imported")
+    if any(m.split(".")[0] == "image_to_pointcloud_tpu" for m in sys.modules):
+        raise AssertionError("a module of the JAX package was imported")
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "image_to_pointcloud_tpu_torch/csrc/flash_attention.cu",
          "replaces": "image_to_pointcloud_tpu/models/attention.py:175",
-         "launches": counts["flash_attention"], **k1},
+         "launches": counts["flash_attention"], "launches_per_request": per_request["flash_attention"], **k1},
         {"name": "grid_knn", "route": "cuda",
          "source": "image_to_pointcloud_tpu_torch/csrc/grid_knn.cu",
          "replaces": "image_to_pointcloud_tpu/ops/outlier_pallas.py:134",
-         "launches": counts["grid_knn"], **k2},
+         "launches": counts["grid_knn"], "launches_per_request": per_request["grid_knn"], **k2},
         {"name": "unproject", "route": "cuda",
          "source": "image_to_pointcloud_tpu_torch/csrc/unproject.cu",
          "replaces": "image_to_pointcloud_tpu/ops/unproject.py:208",
-         "launches": counts["unproject"], **k3},
+         "launches": counts["unproject"], "launches_per_request": per_request["unproject"], **k3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

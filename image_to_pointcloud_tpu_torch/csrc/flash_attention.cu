@@ -3,54 +3,64 @@
 // Replaces the Pallas TPU kernel `flash_attention` / `_flash_kernel_packed`
 // (image_to_pointcloud_tpu/models/attention.py). Same math: bidirectional
 // softmax(q·kᵀ·scale)·v per (batch, head); online softmax with the running
-// max m, denominator l and accumulator acc held in f32; the scale is applied
-// to the f32 dot; probabilities are rounded to the input dtype before the
-// P·V product, as the Pallas body casts `pr.astype(v.dtype)`.
-//
-// What bounds it on the H100: the flagship shape (B·H = 6 per image,
-// N = 1370, D = 64) is compute-bound (~0.5 GFLOP per image-layer against
-// ~1 MB of q/k/v), and at one image per batch it has only 6·22 = 132 query
-// tiles, one per SM. This first version runs the dots on the FP32 CUDA
-// cores, not the tensor cores: one thread owns one query row (q and acc in
-// registers), K/V tiles of 64 keys are staged in shared memory as f32 and
-// read as warp-wide broadcasts, and keys are consumed in chunks of 16 so
-// the online-softmax rescale runs once per chunk instead of once per key.
-// Keys at n >= N are skipped directly, so no padding to a tile multiple is
-// needed. wgmma/TMA tiles are later work.
+// max m, denominator l and accumulator acc held in f32, l summed from the
+// unrounded probabilities; the scale is applied to the f32 dot;
+// probabilities are rounded to the input dtype before the P·V product, as
+// the Pallas body casts `pr.astype(v.dtype)`.
 //
 // Layout: q/k/v/o are (B, H, N, 64) with the last dim contiguous and any
 // element strides for b, h and n, so the (B, N, H·64) projections are read
 // in place without a head transpose.
+//
+// bf16: `flash_fwd_bf16_wgmma_kernel`, on the tensor cores.
+//   What bounds it on the H100: at DA-V2's (1, 6, 1370, 64) a call is
+//   4·6·1370²·64 = 2.9 GFLOP (2.9 µs at 989 TFLOP/s) and 11.3 M
+//   exponentials, against 4.2 MB of q/k/v/o (1.3 µs at 3.35 TB/s): compute.
+//   At batch 1 it has only 6·22 = 132 query tiles, one per SM.
+//   Design: one CTA of two warpgroups per (b, h, 64-query tile). The Q tile
+//   is loaded once into shared memory; each warpgroup streams its half of
+//   the 64-key K/V tiles through its own double-buffered ring
+//   (cp.async.cg 16-byte copies, rows past N zero-filled), written in the
+//   128-byte swizzled layout the wgmma descriptors name. S = Q·Kᵀ is four
+//   wgmma m64n64k16 steps (bf16 in, f32 accumulator in registers). The
+//   online softmax runs on the accumulator fragment (row max and sum over
+//   the quad with shuffles, log2(e)·scale folded into one multiply, exp2f,
+//   keys >= N masked with -inf), P is rounded to bf16 in registers and fed
+//   to O += P·V as wgmma's register A operand, V the shared-memory B
+//   operand with the transpose bit. The two warpgroups double the warps on
+//   each SM at batch 1; at the end they merge (m, l, O) through shared
+//   memory (rescale by exp2(m_i - m) and add) and one stores O / l as bf16.
+//   Two CTAs fit on an SM (<= 128 registers a thread, ~91 KB of shared
+//   memory each), so `dpt-large`'s 16·10 = 160 tiles and batch 2's 264 run
+//   in one wave.
+//   Every pointer and b/h/n stride must be 16-byte aligned (the wrapper
+//   checks; the entry point refuses anything else).
+//
+// f32: `flash_fwd_kernel`, SIMT on the FP32 cores (the tiny f32 configs;
+//   TF32 tensor cores would not hold their 1e-5 tolerance). One thread owns
+//   one query row (q and acc in registers), K/V tiles of 64 keys are staged
+//   in shared memory and read as warp-wide broadcasts, and keys are
+//   consumed in chunks of 16 so the online-softmax rescale runs once per
+//   chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kD = 64;      // head dim
+constexpr int kD = 64;  // head dim
+
+// ---------------------------------------------------------------- f32 SIMT
+
 constexpr int kBQ = 64;     // queries (threads) per block
 constexpr int kBK = 64;     // keys per shared-memory tile
 constexpr int kChunk = 16;  // keys per online-softmax update
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// The probability as the P·V dot sees it: rounded to the input dtype.
-template <typename T> __device__ __forceinline__ float round_to_input(float p) {
-  return to_f32(from_f32<T>(p));
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kBQ)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int N,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H, int N,
                  long long qsb, long long qsh, long long qsn,
                  long long ksb, long long ksh, long long ksn,
                  long long vsb, long long vsh, long long vsn,
@@ -62,15 +72,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H;
   const int h = bh - b * H;
   const int row = blockIdx.x * kBQ + threadIdx.x;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + h * ksh;
-  const T* vb = v + b * vsb + h * vsh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + h * ksh;
+  const float* vb = v + b * vsb + h * vsh;
 
   float qr[kD];
   float acc[kD];
 #pragma unroll
   for (int d = 0; d < kD; ++d) {
-    qr[d] = row < N ? to_f32(qb[row * qsn + d]) : 0.f;
+    qr[d] = row < N ? qb[row * qsn + d] : 0.f;
     acc[d] = 0.f;
   }
   float m = -INFINITY;
@@ -85,8 +95,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kk = idx / kD;
       const int d = idx - kk * kD;
       const bool in = kk < nk;
-      ksf[idx] = in ? to_f32(kb[(k0 + kk) * ksn + d]) : 0.f;
-      vsf[idx] = in ? to_f32(vb[(k0 + kk) * vsn + d]) : 0.f;
+      ksf[idx] = in ? kb[(k0 + kk) * ksn + d] : 0.f;
+      vsf[idx] = in ? vb[(k0 + kk) * vsn + d] : 0.f;
     }
     __syncthreads();
 
@@ -116,14 +126,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kChunk; ++j) {
         const float p = expf(s[j] - m_new);  // masked keys: exp(-inf) = 0
         l += p;
-        const float pr = round_to_input<T>(p);
 #pragma unroll
         for (int d4 = 0; d4 < kD / 4; ++d4) {
           const float4 vv = vs[c + j][d4];
-          acc[4 * d4] += pr * vv.x;
-          acc[4 * d4 + 1] += pr * vv.y;
-          acc[4 * d4 + 2] += pr * vv.z;
-          acc[4 * d4 + 3] += pr * vv.w;
+          acc[4 * d4] += p * vv.x;
+          acc[4 * d4 + 1] += p * vv.y;
+          acc[4 * d4 + 2] += p * vv.z;
+          acc[4 * d4 + 3] += p * vv.w;
         }
       }
       m = m_new;
@@ -131,23 +140,342 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (row < N) {
-    T* ob = o + b * osb + h * osh + row * osn;
+    float* ob = o + b * osb + h * osh + row * osn;
     const float inv = 1.f / l;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) ob[d] = from_f32<T>(acc[d] * inv);
+    for (int d = 0; d < kD; ++d) ob[d] = acc[d] * inv;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int H, int N, const long long* st, float scale,
-                   cudaStream_t stream) {
-  dim3 grid((N + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T><<<grid, kBQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, N, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
-  return cudaGetLastError();
+// ------------------------------------------------------ bf16 tensor cores
+
+constexpr int kTile = 64;                       // queries per CTA, keys per K/V tile
+constexpr int kTileBytes = kTile * kD * 2;      // 8 KB: 64 rows of 128 bytes
+constexpr int kWgThreads = 128;                 // one warpgroup
+constexpr int kThreads = 2 * kWgThreads;        // two warpgroups split the keys
+// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
+// repeats every 8 rows = 1024 bytes): Q, then per warpgroup two stages of
+// (K, V), then the merge area (warpgroup 1's O fragment and m, l).
+constexpr int kSmemQ = 0;
+constexpr int kSmemKV = kTileBytes;
+constexpr int kSmemMerge = kSmemKV + 2 * 2 * 2 * kTileBytes;
+constexpr int kMergeBytes = (32 + 4) * kWgThreads * 4;
+constexpr int kSmemBytes = kSmemMerge + kMergeBytes + 1024;  // + alignment slack
+
+__device__ __forceinline__ uint32_t kv_stage(int wg, int stage) {
+  return kSmemKV + (wg * 2 + stage) * 2 * kTileBytes;  // K at +0, V at +kTileBytes
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  // src-size 0 fills the 16 bytes with zeros.
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Generic-proxy writes (cp.async) become visible to wgmma's async-proxy
+// reads of shared memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_barrier(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWgThreads) : "memory");
+}
+
+// One 64-row × 64-col bf16 tile (row stride `sn` elements) into shared
+// memory at `dst` in the 128-byte swizzled layout: row r at r·128 bytes,
+// its 16-byte chunk c at chunk c ^ (r % 8). Rows at or past `n` are zeros.
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* base, long long sn,
+                                          int row0, int n, int tid, int nthreads) {
+  for (int idx = tid; idx < kTile * 8; idx += nthreads) {
+    const int r = idx >> 3;
+    const int c = idx & 7;
+    const int row = row0 + r;
+    const bool valid = row < n;
+    const __nv_bfloat16* src = base + (valid ? row : 0) * sn + c * 8;
+    cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), src, valid);
+  }
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address and the
+// leading / stride byte offsets in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo) << 16) |
+         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from touching a register wgmma still owns: reads of
+// the accumulators stay after the wait, and P's registers stay live to it.
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+#define IPC_ACC32(d)                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),         \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),      \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define IPC_D32                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "   \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (+)= A·B, m64n64k16, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " IPC_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : IPC_ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A·B, m64n64k16, A (bf16 pairs) from registers, B from shared memory
+// MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " IPC_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : IPC_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Accumulator fragment of m64n64 (per thread, 32 floats): warp w of the
+// warpgroup owns rows 16w..16w+15; with g = lane / 4, t = lane % 4,
+// element i sits at row 16w + g + 8·((i >> 1) & 1), column
+// 8·(i >> 2) + 2t + (i & 1). The same pairs, read four n8 blocks at a
+// time, are wgmma's register A fragment for k16 steps of P·V.
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_bf16_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ o, int H, int N,
+                            long long qsb, long long qsh, long long qsn,
+                            long long ksb, long long ksh, long long ksn,
+                            long long vsb, long long vsh, long long vsn,
+                            long long osb, long long osh, long long osn, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  float* merge = reinterpret_cast<float*>(smem_raw + (sbase - raw) + kSmemMerge);
+
+  const int wg = threadIdx.x / kWgThreads;
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kTile;
+  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
+  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
+  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
+
+  // Key tiles [first, last) of this warpgroup: the first half to 0, the
+  // rest to 1 (the ragged last tile lands on 1 unless there is one tile).
+  const int tiles = (N + kTile - 1) / kTile;
+  const int half = (tiles + 1) / 2;
+  const int first = wg == 0 ? 0 : half;
+  const int count = (wg == 0 ? half : tiles) - first;
+
+  load_tile(sbase + kSmemQ, qb + static_cast<long long>(q0) * qsn, qsn, 0, N - q0,
+            threadIdx.x, kThreads);
+  if (count > 0) {
+    const long long r0 = static_cast<long long>(first) * kTile;
+    load_tile(sbase + kv_stage(wg, 0), kb + r0 * ksn, ksn, 0, N - first * kTile, tid,
+              kWgThreads);
+    load_tile(sbase + kv_stage(wg, 0) + kTileBytes, vb + r0 * vsn, vsn, 0,
+              N - first * kTile, tid, kWgThreads);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g and g + 8, log2 domain
+  float l0 = 0.f, l1 = 0.f;              // this thread's partial sums
+
+  for (int it = 0; it < count; ++it) {
+    const int tile = first + it;
+    const int stage = it & 1;
+    if (it + 1 < count) {
+      const long long r0 = static_cast<long long>(tile + 1) * kTile;
+      const uint32_t dst = sbase + kv_stage(wg, stage ^ 1);
+      load_tile(dst, kb + r0 * ksn, ksn, 0, N - (tile + 1) * kTile, tid, kWgThreads);
+      load_tile(dst + kTileBytes, vb + r0 * vsn, vsn, 0, N - (tile + 1) * kTile, tid,
+                kWgThreads);
+      cp_async_commit();
+    }
+    if (it > 0) {
+      if (it + 1 < count) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      fence_proxy_async();
+      wg_barrier(wg);
+    }
+    const uint32_t ks = sbase + kv_stage(wg, stage);
+    const uint32_t vs = ks + kTileBytes;
+
+    // S = Q·Kᵀ: four k16 steps; within the 128-byte swizzle atom a step
+    // advances the start address by 32 bytes.
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss(s, smem_desc(sbase + kSmemQ + kk * 32, 1, 64), smem_desc(ks + kk * 32, 1, 64),
+               kk);
+    }
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fence_reg(s[i]);
+
+    // Online softmax in the log2 domain; keys >= N get -inf.
+    const int kvalid = N - tile * kTile;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+      const float x = col < kvalid ? s[i] * scale_log2 : -INFINITY;
+      s[i] = x;
+      if ((i >> 1) & 1) {
+        mx1 = fmaxf(mx1, x);
+      } else {
+        mx0 = fmaxf(mx0, x);
+      }
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0));  // finite: the tile has a valid key
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float c0 = exp2f(m0 - mn0);
+    const float c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= c0;
+    l1 *= c1;
+    uint32_t p[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const bool r1 = (i >> 1) & 1;
+      const float pa = exp2f(s[i] - (r1 ? mn1 : mn0));
+      const float pb = exp2f(s[i + 1] - (r1 ? mn1 : mn0));
+      if (r1) {
+        l1 += pa + pb;
+        acc[i] *= c1;
+        acc[i + 1] *= c1;
+      } else {
+        l0 += pa + pb;
+        acc[i] *= c0;
+        acc[i + 1] *= c0;
+      }
+      p[i >> 1] = pack_bf16(pa, pb);  // P rounded to bf16, as the P·V dot sees it
+    }
+
+    // O += P·V: k16 step kk takes P's columns 16kk..16kk+15 (registers
+    // 4kk..4kk+3) and V's rows 16kk.. (2 KB further per step).
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+      wgmma_rs(acc, a, smem_desc(vs + kk * 2048, 64, 64));
+    }
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fence_reg(acc[i]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) fence_reg(p[i]);
+    wg_barrier(wg);  // the stage is consumed before it is refilled
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+
+  // Merge: warpgroup 1 hands its (m, l, O) to warpgroup 0, whose thread of
+  // the same index holds the same rows and columns.
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) merge[i * kWgThreads + tid] = acc[i];
+    float* ml = merge + 32 * kWgThreads + 4 * tid;
+    ml[0] = m0;
+    ml[1] = m1;
+    ml[2] = l0;
+    ml[3] = l1;
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  const float* ml = merge + 32 * kWgThreads + 4 * tid;
+  const float mo0 = ml[0], mo1 = ml[1];
+  const float mm0 = fmaxf(m0, mo0), mm1 = fmaxf(m1, mo1);
+  const float a0 = exp2f(m0 - mm0), b0 = exp2f(mo0 - mm0);  // exp2(-inf) = 0: no keys
+  const float a1 = exp2f(m1 - mm1), b1 = exp2f(mo1 - mm1);
+  const float inv0 = 1.f / (l0 * a0 + ml[2] * b0);
+  const float inv1 = 1.f / (l1 * a1 + ml[3] * b1);
+
+  const int row0 = q0 + 16 * warp + g;
+  __nv_bfloat16* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float* mo = merge + 4 * j * kWgThreads + tid;
+    if (row0 < N) {
+      const float x = (acc[4 * j] * a0 + mo[0] * b0) * inv0;
+      const float y = (acc[4 * j + 1] * a0 + mo[kWgThreads] * b0) * inv0;
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * osn + col) = __floats2bfloat162_rn(x, y);
+    }
+    if (row0 + 8 < N) {
+      const float x = (acc[4 * j + 2] * a1 + mo[2 * kWgThreads] * b1) * inv1;
+      const float y = (acc[4 * j + 3] * a1 + mo[3 * kWgThreads] * b1) * inv1;
+      *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * osn + col) =
+          __floats2bfloat162_rn(x, y);
+    }
+  }
+}
+
+bool aligned16(const void* p, const long long* st) {
+  if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (int i = 0; i < 3; ++i) {
+    if (st[i] % 8 != 0) return false;  // 8 bf16 = 16 bytes
+  }
+  return true;
 }
 
 }  // namespace
@@ -156,12 +484,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
 // for q, k, v, o in that order. Returns the launch's cudaError_t.
 extern "C" int ipc_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, int B, int H, int N, int D,
-                                   const long long* strides, float scale,
+                                   const long long* st, float scale,
                                    int dtype, void* stream) {
   if (D != kD || N <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, o, B, H, N, strides, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, H, N, strides, scale, s);
+  if (dtype == 0) {
+    dim3 grid((N + kBQ - 1) / kBQ, B * H);
+    flash_fwd_kernel<<<grid, kBQ, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), H, N, st[0], st[1], st[2],
+        st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
+    return cudaGetLastError();
+  }
+  if (dtype == 1) {
+    if (!(aligned16(q, st) && aligned16(k, st + 3) && aligned16(v, st + 6) &&
+          aligned16(o, st + 9)))
+      return cudaErrorMisalignedAddress;
+    // Above 48 KB of shared memory only after opting in, once per device.
+    static unsigned configured = 0;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 32) return cudaErrorInvalidDevice;
+    if (!(configured & (1u << dev))) {
+      err = cudaFuncSetAttribute(flash_fwd_bf16_wgmma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      if (err != cudaSuccess) return err;
+      configured |= 1u << dev;
+    }
+    dim3 grid((N + kTile - 1) / kTile, B * H);
+    flash_fwd_bf16_wgmma_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, N, st[0],
+        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+        scale * 1.4426950408889634f);
+    return cudaGetLastError();
+  }
   return cudaErrorInvalidValue;
 }

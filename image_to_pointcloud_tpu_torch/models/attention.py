@@ -2,7 +2,8 @@
 PyTorch version.
 
 Counterpart of ``image_to_pointcloud_tpu/models/attention.py``. The
-kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+kernels (``csrc/flash_attention.cu``: bf16 on the tensor cores with
+``wgmma``, f32 on the FP32 cores) replace the Pallas TPU kernel
 ``flash_attention``; :func:`attention_plain` is ``_attention_xla``'s
 math. The choice follows the tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version. Unlike the JAX
@@ -49,8 +50,10 @@ def flash_attention(
 
     The head dim must be contiguous; batch, head and sequence strides are
     free, so head-split views of (B, N, H·64) projections are read in
-    place. The output has the input dtype and shape, laid out as
-    (B, N, H, 64) underneath so merging the heads back is free.
+    place (bf16: every pointer and stride a multiple of 16 bytes). The
+    output has the input dtype and shape, laid out as (B, N, H, 64)
+    underneath so merging the heads back is free. bf16 runs the
+    tensor-core kernel, f32 the SIMT one.
     """
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
@@ -63,6 +66,11 @@ def flash_attention(
         raise ValueError(f"flash_attention: head dim {d} (the kernel takes 64)")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16 and not all(
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)
+    ):
+        # The tensor-core kernel copies 16-byte rows with cp.async.
+        raise ValueError("flash_attention: bf16 needs 16-byte aligned pointers and strides")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, out) for i in range(3))

@@ -98,7 +98,7 @@ def block_pack(
     (exc_idx, exc_val) and overwrite the wrapped byte on the device. The
     native one-pass pack runs when the library is available, else
     :func:`_block_pack_numpy`."""
-    from image_to_pointcloud_tpu import native
+    from image_to_pointcloud_tpu_torch import native
 
     packed = native.jpeg_sparse_pack(coeffs)
     if packed is not None:

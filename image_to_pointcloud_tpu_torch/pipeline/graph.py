@@ -280,7 +280,7 @@ class JpegInput:
         (k<8, a pending device resize, exotic sampling factors, no native
         library); the bundle then keeps the ride-along. Cached per step."""
         if step not in self._gc_cache:
-            from image_to_pointcloud_tpu import native
+            from image_to_pointcloud_tpu_torch import native
 
             colors = None
             # The device samples colours after its area resize to the
@@ -316,7 +316,7 @@ def plan_jpeg_input(data: bytes) -> "JpegInput | None":
     (>~3510 px max dim). At k=8 the device decode is full resolution and
     matches libjpeg within ±3 levels. The 0.75 margin charges the hybrid
     path for its colour ride-along on the device→host side."""
-    from image_to_pointcloud_tpu import native
+    from image_to_pointcloud_tpu_torch import native
 
     r = native.jpeg_coefficients(data)
     if r is None:
@@ -771,7 +771,7 @@ class DepthPipeline:
         cx, cy = w / 2.0, h / 2.0
         scales = handle.depth_scales
 
-        from image_to_pointcloud_tpu import native
+        from image_to_pointcloud_tpu_torch import native
 
         if not want_packed and native.available():
             clouds = []

@@ -1,7 +1,7 @@
 """Service entry point: ``python -m image_to_pointcloud_tpu_torch.serve``.
 
 Serves the v1 API (the reference's ``backend/app.py`` contract) on the
-PyTorch pipeline. Defaults come from the JAX package's typed config tree
+PyTorch pipeline. Defaults come from the typed config tree
 (``core/config.py``: built-in defaults ← ``IPC_TPU_CONFIG`` JSON file ←
 ``IPC_TPU_*`` env vars), then CLI flags. ``--checkpoint-dir`` (or
 ``IPC_TPU_CHECKPOINT_DIR``) points at HF-layout safetensors checkpoints.
@@ -23,7 +23,7 @@ _NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
 
 
 def main() -> None:
-    from image_to_pointcloud_tpu.core.config import load_config
+    from image_to_pointcloud_tpu_torch.core.config import load_config
 
     cfg = load_config(os.environ.get("IPC_TPU_CONFIG"))
 
@@ -78,8 +78,8 @@ def main() -> None:
     if args.mesh:
         parser.error(f"--mesh {_NOT_PORTED}")
 
-    from image_to_pointcloud_tpu.serve.http import HttpServer
-    from image_to_pointcloud_tpu.utils.logging import configure_logging
+    from image_to_pointcloud_tpu_torch.serve.http import HttpServer
+    from image_to_pointcloud_tpu_torch.utils.logging import configure_logging
     from image_to_pointcloud_tpu_torch.pipeline import graph as _graph
     from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
     from image_to_pointcloud_tpu_torch.serve.models import ModelManager

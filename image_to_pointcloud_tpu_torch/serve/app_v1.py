@@ -10,8 +10,8 @@ routes, job flow, progress milestones and result keys:
   ``GET /health``, ``/jobs``, ``DELETE /jobs/{id}``, ``/outputs/…``,
   ``/metrics``, ``/timings/{id}``, ``/openapi.json``, ``/docs``
 
-The HTTP server, job registry, metrics, exporters and meshing are the JAX
-package's own jax-free modules. With ``jpeg_device_decode`` a JPEG upload
+The HTTP server, job registry, metrics, exporters and meshing are the
+port's own copies of the JAX package's host modules. With ``jpeg_device_decode`` a JPEG upload
 takes the hybrid ingest: the host only entropy-decodes it
 (:func:`~image_to_pointcloud_tpu_torch.pipeline.graph.plan_jpeg_input`)
 and the pixels materialize on the device; other uploads, and JPEGs the
@@ -36,21 +36,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from image_to_pointcloud_tpu.io import (
+from image_to_pointcloud_tpu_torch.io import (
     generate_gis_metadata,
     write_las,
     write_ply_mesh,
     write_ply_points,
     write_xyz,
 )
-from image_to_pointcloud_tpu.io.image import decode_image_rgb, png_data_url, png_data_url_palette
-from image_to_pointcloud_tpu.pipeline.meshing import (
+from image_to_pointcloud_tpu_torch.io.image import decode_image_rgb, png_data_url, png_data_url_palette
+from image_to_pointcloud_tpu_torch.pipeline.meshing import (
     decimate_grid_mesh,
     grid_mesh_from_packed,
     vertex_normals,
 )
-from image_to_pointcloud_tpu.serve import metrics as m
-from image_to_pointcloud_tpu.serve.http import (
+from image_to_pointcloud_tpu_torch.serve import metrics as m
+from image_to_pointcloud_tpu_torch.serve.http import (
     HTTPError,
     Request,
     Response,
@@ -58,8 +58,8 @@ from image_to_pointcloud_tpu.serve.http import (
     file_response,
     json_response,
 )
-from image_to_pointcloud_tpu.serve.jobs import JobRegistry, JobStatus
-from image_to_pointcloud_tpu.serve.rawjson import (
+from image_to_pointcloud_tpu_torch.serve.jobs import JobRegistry, JobStatus
+from image_to_pointcloud_tpu_torch.serve.rawjson import (
     float_triplets as _triplets_json,
     int_list as _ints_json,
 )
@@ -145,7 +145,7 @@ class V1Service:
         lazy_export: bool = True,
         lazy_export_max_bytes: int = 256 * 1024 * 1024,
     ):
-        from image_to_pointcloud_tpu.core.config import ProcessingDefaults
+        from image_to_pointcloud_tpu_torch.core.config import ProcessingDefaults
 
         self.output_dir = Path(output_dir)
         self.output_dir.mkdir(exist_ok=True, parents=True)
@@ -511,8 +511,8 @@ class V1Service:
         """mesh_ply path: surface reconstruction + decimated preview
         (reference backend/app.py:509-535)."""
         if self.mesh_method in ("poisson", "bpa"):
-            from image_to_pointcloud_tpu import native
-            from image_to_pointcloud_tpu.pipeline.meshing import reconstruct_cloud
+            from image_to_pointcloud_tpu_torch import native
+            from image_to_pointcloud_tpu_torch.pipeline.meshing import reconstruct_cloud
 
             out = reconstruct_cloud(points, colors, method=self.mesh_method, depth=8)
             if out is None:
@@ -645,13 +645,13 @@ class V1Service:
 
         @r.get("/openapi.json")
         async def openapi_doc(req: Request):
-            from image_to_pointcloud_tpu.serve.openapi import v1_openapi
+            from image_to_pointcloud_tpu_torch.serve.openapi import v1_openapi
 
             return json_response(v1_openapi())
 
         @r.get("/docs")
         async def docs_page(req: Request):
-            from image_to_pointcloud_tpu.serve.openapi import docs_html, v1_openapi
+            from image_to_pointcloud_tpu_torch.serve.openapi import docs_html, v1_openapi
 
             return Response(
                 headers={"content-type": "text/html; charset=utf-8"},

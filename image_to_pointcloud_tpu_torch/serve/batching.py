@@ -21,7 +21,7 @@ from typing import Any
 
 import numpy as np
 
-from image_to_pointcloud_tpu.serve import metrics
+from image_to_pointcloud_tpu_torch.serve import metrics
 from image_to_pointcloud_tpu_torch.pipeline.graph import (
     DepthPipeline,
     PipelineOptions,

@@ -304,8 +304,9 @@ def test_slice_matches_jax(request, family, ingest):
     """PNG: pixels through the f32 return. JPEG: the hybrid device decode
     through the quantized bundle with host colours (exact on both
     sides: one native routine rebuilds them)."""
-    from image_to_pointcloud_tpu import native
+    from image_to_pointcloud_tpu import native as jnative
     from image_to_pointcloud_tpu.pipeline import graph as jgraph
+    from image_to_pointcloud_tpu_torch import native
 
     jcfg, params, model = request.getfixturevalue(
         "dpt_pair" if family == "dpt_classic" else "zoe_pair"
@@ -320,7 +321,7 @@ def test_slice_matches_jax(request, family, ingest):
         a = a_pipe.run(img, depth_scale=15.0, options=jgraph.PipelineOptions(**opts))
         b = b_pipe.run(img, depth_scale=15.0, options=PipelineOptions(**opts))
     else:
-        if not native.available():
+        if not (native.available() and jnative.available()):
             pytest.skip("the native library (g++ build) is unavailable")
         data = _jpeg_bytes(img)
         a = a_pipe.run_jpeg(jgraph.plan_jpeg_input(data), depth_scale=15.0)

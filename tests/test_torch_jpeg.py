@@ -22,10 +22,11 @@ import numpy as np
 import pytest
 import torch
 
-from image_to_pointcloud_tpu import native
+from image_to_pointcloud_tpu import native as jnative
 from image_to_pointcloud_tpu.ops import jpeg as jjpeg
 from image_to_pointcloud_tpu.ops import jpeg_sparse as jsparse
 from image_to_pointcloud_tpu.pipeline import graph as jgraph
+from image_to_pointcloud_tpu_torch import native
 from image_to_pointcloud_tpu_torch.ops import jpeg as tjpeg
 from image_to_pointcloud_tpu_torch.ops import jpeg_sparse as tsparse
 from image_to_pointcloud_tpu_torch.pipeline import graph
@@ -35,7 +36,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 @pytest.fixture(scope="module", autouse=True)
 def require_native():
-    if not native.available():
+    if not (native.available() and jnative.available()):
         pytest.skip("the native library (g++ build) is unavailable")
 
 
@@ -182,7 +183,7 @@ def _same_spec(jspec, tspec) -> bool:
 
 
 def test_plan_declines_what_the_jax_planner_declines():
-    from image_to_pointcloud_tpu.io.image import encode_png
+    from image_to_pointcloud_tpu_torch.io.image import encode_png
 
     noise = np.random.default_rng(0).integers(0, 256, (96, 96, 3), dtype=np.uint8)
     for data in (encode_png(noise), _encode(noise, quality=100)):

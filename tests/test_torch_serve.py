@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from image_to_pointcloud_tpu.io import read_ply
-from image_to_pointcloud_tpu.io.image import encode_png
+from image_to_pointcloud_tpu_torch.io import read_ply
+from image_to_pointcloud_tpu_torch.io.image import encode_png
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -56,7 +56,7 @@ class _ServerThread:
     """An HttpServer + the port's v1 app on a private event-loop thread."""
 
     def __init__(self, out_dir, manager=None, **app_kw):
-        from image_to_pointcloud_tpu.serve.http import HttpServer
+        from image_to_pointcloud_tpu_torch.serve.http import HttpServer
         from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
 
         self.loop = asyncio.new_event_loop()
@@ -166,7 +166,7 @@ def _jpeg(h, w, seed=0):
 def test_jpeg_device_decode_server(jpeg_base, upload, ctype, stage):
     """A q88 JPEG takes the device decode and a PNG the host decode; both
     return a valid PLY."""
-    from image_to_pointcloud_tpu import native
+    from image_to_pointcloud_tpu_torch import native
 
     if ctype == "image/jpeg" and not native.available():
         pytest.skip("the native library (g++ build) is unavailable")
@@ -329,7 +329,8 @@ def test_contract_routes(base):
 def test_port_imports_no_jax():
     """Every module of the port, the server entry point included, imports
     without JAX, Flax, transformers or safetensors (none of them is on the
-    card machine). A subprocess, because this test process has JAX loaded
+    card machine), and without any module of the JAX package. A
+    subprocess, because this test process has JAX loaded
     (tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -338,7 +339,8 @@ def test_port_imports_no_jax():
         "assert 'image_to_pointcloud_tpu_torch.serve.__main__' in names, names\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'transformers', 'safetensors'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'transformers', 'safetensors',\n"
+        "              'image_to_pointcloud_tpu'))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -346,6 +348,42 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _port_sources() -> list[str]:
+    files = sorted(p.relative_to(REPO).as_posix()
+                   for p in (REPO / "image_to_pointcloud_tpu_torch").rglob("*.py"))
+    return ["chip_smoke.py", "tools/profile_torch_pipeline.py", *files]
+
+
+@pytest.mark.parametrize("rel", _port_sources())
+def test_port_source_is_standalone(rel):
+    """No import of the JAX package (``image_to_pointcloud_tpu`` or any of
+    its submodules, relative imports resolved), and no call of
+    ``scaled_dot_product_attention`` outside ``chip_smoke.py``, whose
+    timings use it as the yardstick of K1."""
+    import ast
+
+    tree = ast.parse((REPO / rel).read_text(), filename=rel)
+    pkg = rel.removesuffix(".py").replace("/", ".").rsplit(".", 1)[0]
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parts = pkg.split(".")[: len(pkg.split(".")) - node.level + 1]
+                base = ".".join([*parts, base] if base else parts)
+            mods = [base]
+        else:
+            mods = []
+        for mod in mods:
+            assert mod.split(".")[0] != "image_to_pointcloud_tpu", (
+                f"{rel}:{node.lineno} imports {mod}")
+        if rel != "chip_smoke.py" and isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            assert name != "scaled_dot_product_attention", f"{rel}:{node.lineno} calls SDPA"
 
 
 def test_server_refuses_unported_flags():
