@@ -9,14 +9,36 @@
 // written as the planar rows [x, y, z, r, g, b, 1, 0] of a (B, 8, N) f32
 // buffer, N = ⌈h/step⌉·⌈w/step⌉.
 //
-// What bounds it on the H100: memory traffic, and at the serving shape
-// (518², step 2: ~0.5 MB read, ~2.1 MB written per image) the launch
-// itself. Design: one thread per output point over (B, N); the strided
+// What bounds it on the H100: at the serving shape (518², step 2: ~0.5 MB
+// read, ~2.1 MB written per image, warm in L2 when the layer before has
+// just written its inputs) the launch itself and one load-to-store round
+// trip, not the bytes: a one-element zero_() takes about half its time on
+// the same harness (PERF.md).
+//
+// Design: one thread per output point, 256 to a block that owns 256
+// consecutive points of one image (263 blocks at (1, 518, 518) step 2, two
+// per SM), and 32-bit index arithmetic (the launcher refuses an N that
+// does not fit), so each thread spends one 32-bit division on its (i, j). The strided
 // sampling is folded into the read index (no strided copy of the depth or
-// the image), each of the 8 output rows is written by consecutive threads
-// to consecutive addresses, and the per-image scale is read from a device
+// the image). Every read issues before the divisions, whose IEEE slow path
+// is a call the reads cannot move across. Each of the 8 output rows is
+// written by consecutive threads at consecutive addresses (a warp's store
+// is one 128-byte request). The per-image scale is read from a device
 // array, so the caller never synchronises. The TPU kernel's row tiles (its
-// VMEM slabs) have no counterpart: nothing is staged.
+// VMEM slabs) have no counterpart.
+//
+// 16-byte stores were measured and not kept: with N odd (67,081 at the
+// serving shape) output row r of image b starts at word (8b + r)·N, at
+// every residue mod 4, so a variant that staged rows 0-5 in shared memory
+// and wrote each row's range as float4s from its first 16-byte boundary,
+// with a scalar head and tail of up to 3 words, paid a barrier and a
+// shared-memory round trip that cost as much as the store instructions
+// they saved or more (PERF.md). Reads
+// stay one word per point for the same reason in the other direction: a
+// warp's read of 32 sampled values is one request over the sectors a wider
+// word would touch, at step 2 half of each wider word would be an unused
+// neighbour, 518-wide f32 rows (2072 B) are not 16-byte aligned, and the
+// wrapper accepts any strides.
 //
 // Rounding: x and y divide by f (the TPU kernel multiplies by 1/f), as the
 // port's plain version, numpy's host reconstruct and the reference do. The
@@ -25,43 +47,52 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
+constexpr int kThreads = 256;  // one point each: a block owns 256 points
+
 template <typename Pix>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 unproject_kernel(const float* __restrict__ depth, const Pix* __restrict__ rgb,
                  const float* __restrict__ scale, float* __restrict__ out,
-                 int B, int hh, int ww, int step, float cx, float cy, float f,
+                 int hh, int ww, int step, float cx, float cy, float f,
                  long long sdb, long long sdh, long long sdw, long long sib,
                  long long sih, long long siw, long long sic) {
-  const long long n = static_cast<long long>(hh) * ww;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n * B) return;
-  const int b = static_cast<int>(idx / n);
-  const long long p = idx - b * n;
-  const int i = static_cast<int>(p / ww);
-  const int j = static_cast<int>(p - static_cast<long long>(i) * ww);
+  const int b = blockIdx.y;
+  const int n = hh * ww;  // the launcher checks that it fits
+  const int p0 = blockIdx.x * kThreads;
+  const int cnt = min(kThreads, n - p0);
+  const int t = threadIdx.x;
+  if (t >= cnt) return;
+  const int p = p0 + t;
+  const int i = p / ww;
+  const int j = p - i * ww;
   const long long row = static_cast<long long>(i) * step;
   const long long col = static_cast<long long>(j) * step;
-
+  // Every read issues before the divisions (whose slow path is a call the
+  // reads could not move across).
+  float vals[8];
   const float d = depth[b * sdb + row * sdh + col * sdw];
   const Pix* px = rgb + b * sib + row * sih + col * siw;
+  vals[3] = static_cast<float>(px[0]);
+  vals[4] = static_cast<float>(px[sic]);
+  vals[5] = static_cast<float>(px[2 * sic]);
   const float u = __fsub_rn(static_cast<float>(j * step), cx);
   const float v = __fsub_rn(static_cast<float>(i * step), cy);
   const float z = __fmul_rn(d, scale[b]);
   const float zs = z != 0.f ? z : 1e-6f;
-
+  vals[0] = __fdiv_rn(__fmul_rn(u, zs), f);
+  vals[1] = __fdiv_rn(__fmul_rn(v, zs), f);
+  vals[2] = z;
+  vals[6] = 1.f;
+  vals[7] = 0.f;
+  // Each row written by consecutive threads at consecutive addresses.
   float* o = out + static_cast<long long>(b) * 8 * n + p;
-  o[0] = __fdiv_rn(__fmul_rn(u, zs), f);
-  o[n] = __fdiv_rn(__fmul_rn(v, zs), f);
-  o[2 * n] = z;
-  o[3 * n] = static_cast<float>(px[0]);
-  o[4 * n] = static_cast<float>(px[sic]);
-  o[5 * n] = static_cast<float>(px[2 * sic]);
-  o[6 * n] = 1.f;
-  o[7 * n] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) o[static_cast<long long>(r) * n] = vals[r];
 }
 
 template <typename Pix>
@@ -69,13 +100,12 @@ int launch(const float* depth, const void* rgb, const float* scale, float* out,
            int B, int hh, int ww, int step, float cx, float cy, float f,
            long long sdb, long long sdh, long long sdw, long long sib,
            long long sih, long long siw, long long sic, cudaStream_t stream) {
-  const long long total = static_cast<long long>(B) * hh * ww;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  unproject_kernel<Pix><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      depth, static_cast<const Pix*>(rgb), scale, out, B, hh, ww, step, cx, cy,
-      f, sdb, sdh, sdw, sib, sih, siw, sic);
+  const long long n = static_cast<long long>(hh) * ww;
+  if (n > INT_MAX - kThreads || B > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads), static_cast<unsigned>(B));
+  unproject_kernel<Pix><<<grid, kThreads, 0, stream>>>(
+      depth, static_cast<const Pix*>(rgb), scale, out, hh, ww, step, cx, cy, f,
+      sdb, sdh, sdw, sib, sih, siw, sic);
   return cudaGetLastError();
 }
 
@@ -83,8 +113,9 @@ int launch(const float* depth, const void* rgb, const float* scale, float* out,
 
 // depth: f32 with element strides sdb (batch), sdh (row), sdw (column).
 // rgb: u8 (rgb_is_u8 = 1) or f32 (0) with element strides sib, sih, siw and
-// sic (channel). scale: (B,) f32. out: (B, 8, hh·ww) f32, contiguous, with
-// hh = ⌈h/step⌉ and ww = ⌈w/step⌉. Returns the launch's cudaError_t.
+// sic (channel). scale: (B,) f32. out: (B, 8, hh·ww) f32, contiguous and
+// 4-byte aligned, with hh = ⌈h/step⌉ and ww = ⌈w/step⌉. Returns the
+// launch's cudaError_t.
 extern "C" int ipc_unproject(const float* depth, const void* rgb, int rgb_is_u8,
                              const float* scale, float* out, int B, int hh,
                              int ww, int step, float cx, float cy, float f,

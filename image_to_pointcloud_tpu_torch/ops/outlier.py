@@ -50,7 +50,10 @@ def grid_knn_mean_distances_plain(
     nearest neighbours inside the (2·window+1)² grid window (self
     included at 0). Sentinel-padded borders; d² > 1e17 is no neighbour;
     the running top-k is an insertion cascade, one window offset at a
-    time, exactly as the scan form."""
+    time, exactly as the scan form. A NaN distance (a NaN coordinate in
+    the window, or an infinite centre) propagates through ``minimum`` and
+    ``maximum`` into the whole list, so nothing is found and that point's
+    mean is 0, as in the JAX package."""
     p = points_grid.float()
     bsz, hh, ww, _ = p.shape
     r = window
@@ -85,6 +88,10 @@ def grid_knn_mean_distances_cuda(points_grid: torch.Tensor) -> torch.Tensor:
     The input may be any strided view whose row stride is ``ww`` point
     strides — e.g. ``packed[:, :3].transpose(1, 2).reshape(B, hh, ww, 3)``
     of the planar (B, 8, N) point buffer, which the kernel reads in place.
+    Bit-identical to :func:`grid_knn_mean_distances_plain`, NaN points
+    included: the kernel visits the taps in another order (the sorted
+    top-20 does not depend on it) and writes 0 wherever a NaN distance
+    makes the plain version's mean 0.
     """
     if not points_grid.is_cuda or points_grid.dtype != torch.float32:
         raise ValueError(

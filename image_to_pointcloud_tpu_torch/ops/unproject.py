@@ -114,8 +114,10 @@ def unproject_cuda(
     fov_deg: float | None = None,
 ) -> torch.Tensor:
     """The CUDA kernel: (B, h, w) f32 depth and a (B, h, w, 3) u8 or f32
-    image → (B, 8, N) f32. Both inputs are read through their strides
-    (any views); ``depth_scale`` is a number or a (B,) tensor."""
+    image → (B, 8, N) f32, bit-identical to :func:`unproject_plain`. Both
+    inputs are read through their strides (any views), the sampling step
+    folded into the read index; ``depth_scale`` is a number or a (B,)
+    tensor, read on the device."""
     if not (depth_norm.is_cuda and image_rgb.device == depth_norm.device):
         raise ValueError(
             f"unproject: needs CUDA tensors on one device, got {depth_norm.device} "

@@ -88,6 +88,79 @@ def test_grid_knn_matches_pallas(rng):
     np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-7)
 
 
+def test_grid_knn_nan_inf_matches_jax(rng):
+    """NaN and inf points, as a bad depth value hands them over. The JAX
+    package's scan form and Pallas kernel (interpret mode, the same shape
+    and tile as above, so the compile is shared) propagate a NaN distance
+    through the cascade: the point's mean is 0 and it drops out of the
+    statistics. The plain version (K2's reference on the card) must put
+    its zeros at the same points and agree elsewhere."""
+    from image_to_pointcloud_tpu.ops.outlier import grid_knn_mean_distances as jscan
+    from image_to_pointcloud_tpu.ops.outlier_pallas import (
+        grid_knn_mean_distances_pallas,
+    )
+
+    pts = (rng.random((2, 30, 50, 3)) * 3).astype(np.float32)
+    pts[0, 4, 9, 1] = np.nan  # poisons every window that holds it
+    pts[0, 20, 33, 0] = np.inf  # poisons its own point (inf - inf)
+    pts[1, 0, 0, 2] = -np.inf  # at a corner
+    pts[1, 29, 49] = np.nan
+    ours = grid_knn_mean_distances(_t(pts)).numpy()
+    pallas = np.asarray(
+        grid_knn_mean_distances_pallas(
+            jnp.asarray(pts), k=20, window=4, tile=(128, 256), interpret=True
+        )
+    )
+    scan = np.stack([np.asarray(jscan(jnp.asarray(p), k=20, window=4)) for p in pts])
+    zeros = ours == 0
+    assert zeros.sum() > 4 and np.isfinite(ours).all()
+    for ref in (pallas, scan):
+        np.testing.assert_array_equal(zeros, ref == 0)
+        np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-7)
+
+
+def _centre_out_cascade(points_grid: torch.Tensor, k: int = 20, r: int = 4) -> torch.Tensor:
+    """The plain version's cascade with the taps visited as the CUDA
+    kernel visits them: ascending dy² + dx², ties by (dy, dx), and a tap
+    that is not below the running k-th value skipped."""
+    p = points_grid.float()
+    b, hh, ww, _ = p.shape
+    pad = torch.full((b, hh + 2 * r, ww + 2 * r, 3), 1e9)
+    pad[:, r : r + hh, r : r + ww] = p
+    big = torch.full((), 1e30)
+    best = [big.expand(b, hh, ww)] * k
+    taps = sorted(
+        ((dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)),
+        key=lambda o: (o[0] ** 2 + o[1] ** 2, o),
+    )
+    assert taps[0] == (0, 0) and len(taps) == (2 * r + 1) ** 2
+    for dy, dx in taps:
+        diff = pad[:, r + dy : r + dy + hh, r + dx : r + dx + ww] - p
+        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+        d2 = d2 + diff[..., 2] * diff[..., 2]
+        v = torch.where(d2 > 1e17, big, d2)
+        v = torch.where(v < best[k - 1], v, big)  # the early reject
+        for i in range(k):
+            best[i], v = torch.minimum(best[i], v), torch.maximum(best[i], v)
+    acc = torch.zeros((b, hh, ww))
+    cnt = torch.zeros_like(acc)
+    for s in best:
+        found = s < 0.5e30
+        acc = acc + torch.where(found, torch.sqrt(s.clamp_min(0.0)), 0.0)
+        cnt = cnt + found.float()
+    return (acc / cnt.clamp_min(1.0)).reshape(b, hh * ww)
+
+
+@pytest.mark.parametrize("shape", [(1, 30, 33, 3), (2, 3, 5, 3)])
+def test_grid_knn_centre_out_order_is_exact(rng, shape):
+    """The CPU evidence for K2's tap order: the sorted top-20 does not
+    depend on the insertion order, so the centre-out cascade with its early
+    reject gives the plain version's means bit for bit, here on points of
+    a ¼ lattice, where many distances tie."""
+    pts = rng.integers(0, 8, shape).astype(np.float32) * np.float32(0.25)
+    assert torch.equal(_centre_out_cascade(_t(pts)), grid_knn_mean_distances_plain(_t(pts)))
+
+
 def test_grid_knn_plain_matches_scan_form(rng):
     from image_to_pointcloud_tpu.ops.outlier import grid_knn_mean_distances as jscan
 

@@ -90,9 +90,16 @@ def main() -> None:
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"profiled window {window * 1e3:.1f} ms, device kernel time {busy_us / 1e3:.1f} ms, "
           f"busy share {busy_us / 1e3 / (window * 1e3):.3f}")
+    def row(e) -> str:
+        return (f"  {e.self_device_time_total / 1e3 / args.iters:9.4f} ms/run  "
+                f"{e.count // args.iters:5d}x  {e.key[:90]}")
+
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  {e.self_device_time_total / 1e3 / args.iters:9.3f} ms/run  "
-              f"{e.count // args.iters:5d}x  {e.key[:90]}")
+        print(row(e))
+    print("the port's own kernels:")
+    for e in events:
+        if any(k in e.key for k in ("flash_fwd", "grid_knn_kernel", "unproject_kernel")):
+            print(row(e))
     launches = sum(e.count for e in events) // args.iters
     print(f"device kernels per run: {launches}")
 
