@@ -38,26 +38,49 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 8. the slice on the card vs the slice on the CPU, for tiny configs of
    the three families (Depth-Anything-V2, classic DPT, ZoeDepth) with
    64-wide heads, same weights, f32, TF32 off, through the f32 return
-   and through the quantized bundle.
-9. the v1 server in this process, bf16, each main path read on its own
-   (the launch counters zeroed just before and read just after):
-   Depth-Anything-V2-Small with 518² and 400×300 PNG → PLY requests
-   through the default quantized bundle, and in a second app with the
-   hybrid JPEG ingest five q88 518² JPEG → PLY requests, every one of
-   which must take the device decode; then ``dpt-large`` (ViT-L/16,
-   384², K1 in all 24 layers) and ``zoedepth`` (BEiT-L/16, 518² padded
-   to 614² and run at 512², whose biased attention is plain torch ops,
-   so K1 must stay at zero) at full width, random init, one cold and
-   three 518² PNG → PLY requests each. Each path must launch K1 exactly
-   12 (DA-V2), 24 (``dpt-large``) or 0 (``zoedepth``) times a request,
-   and K2 and K3 once.
-10. a ``triposr`` request, and the dummy graphs on the card vs the CPU,
+   and through the quantized bundle; then the same over their int8 W8A8
+   encoders.
+9. the advanced pipelines (metric, tiled high resolution, video) on a
+   tiny Depth-Anything, card vs CPU, on both transfer contracts; the
+   voxel op card vs CPU on one 200,000-point cloud.
+10. ``QuantLinear`` at the served int8 shapes (DA-V2's and DPT-Large's
+    fc1 and fc2, ZoeDepth's fc1), card vs CPU: the int32 accumulator and
+    the output bit for bit; ``torch._int_mm``, the whole ``QuantLinear``
+    and the bf16 ``nn.Linear`` timed beside the int8 bound.
+11. the served models at full width, card (bf16, the quantized bundle)
+    vs CPU (f32), same weights, same frame: ``depth-anything-v2``,
+    ``dpt-large`` and ``zoedepth``, each stage's error logged (every
+    encoder block, the taps, the neck, the head's raw output), the raw
+    output within ``FULL_WIDTH_TOL`` max-normalized, the card's
+    normalized depth not flat (p98 - p2 > 0) and more than one z value in
+    the points; the depth normalization card vs CPU bit for bit.
+12. the v1 server in this process, bf16, each main path read on its own
+    (the launch counters zeroed just before and read just after):
+    Depth-Anything-V2-Small with 518² and 400×300 PNG → PLY requests
+    through the default quantized bundle, and in a second app with the
+    hybrid JPEG ingest five q88 518² JPEG → PLY requests, every one of
+    which must take the device decode; then ``dpt-large`` (ViT-L/16,
+    384², K1 in all 24 layers) and ``zoedepth`` (BEiT-L/16, 518² padded
+    to 614² and run at 512², whose biased attention is plain torch ops,
+    so K1 must stay at zero) at full width, random init, one cold and
+    three 518² PNG → PLY requests each; and a third app over
+    ``ModelManager(int8=True)``: int8 DA-V2-Small, three requests. Each
+    path must launch K1 exactly 12 (DA-V2, int8 too), 24 (``dpt-large``)
+    or 0 (``zoedepth``) times a request, and K2 and K3 once; every PLY
+    must hold finite points whose depth is not flat.
+13. a ``triposr`` request, and the dummy graphs on the card vs the CPU,
     bit for bit.
-11. batch-1 ``submit_batch`` + ``collect`` medians, in turns: PNG with
+14. the CLI (``cli.main``) on the card at full width: ``highres`` on a
+    1024² frame (tile 518, overlap 128), ``metric`` with
+    ``depth-anything-v2-metric-small`` and ``zoedepth-small``, ``video``
+    on four 518² frames with and without ``--voxel``, ``convert`` to
+    ply, las, xyz, pcd and glb and once with ``--int8``; each run held to
+    its exact K1/K2/K3 launches, each output file read back.
+15. batch-1 ``submit_batch`` + ``collect`` medians, in turns: PNG with
     the f32 return, PNG with the quantized bundle, JPEG with the bundle.
-12. ``/profile/start`` and ``/profile/stop`` around one ``dpt-large``
+16. ``/profile/start`` and ``/profile/stop`` around one ``dpt-large``
     request: the Chrome trace must exist and name the CUDA kernels. Last,
-    so that no profiler session precedes the timings of phase 11.
+    so that no profiler session precedes the timings of phase 15.
 
 Each phase logs its wall time. Kernel times: ``device`` is a CUDA graph
 of 20 captured calls, replayed and timed with CUDA events (no host time
@@ -102,9 +125,17 @@ K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # order); vs PIL within libjpeg's integer-IDCT tolerance.
 JPEG_CPU_TOL, JPEG_PIL_TOL = 1.0, 3.0
 # Slice, card vs CPU (the port's CPU parity tolerances; ZoeDepth through
-# the quantized bundle: the larger of SLICE_RMSE and the codec's own error,
-# see _slice_card_vs_cpu).
+# the quantized bundle, and its int8 encoder through either return: the
+# larger of SLICE_RMSE and the codec's own error, see _slice_card_vs_cpu).
 SLICE_KEEP_AGREE, SLICE_RMSE = 0.995, 1e-3
+# Full-width raw model output, card (bf16) vs CPU (f32), max-normalized:
+# bf16 alone (the same model in bf16 on the CPU) differs from f32 by
+# 1.5-2.7 % on the three served models; the card is held to about twice
+# the largest.
+FULL_WIDTH_TOL = 0.05
+# The voxel op card vs CPU on one cloud: CUDA's scatter-add is atomic, so
+# each voxel's sum is taken in another order (a few f32 ulp of the mean).
+VOXEL_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -542,6 +573,104 @@ def phase_slice() -> None:
         )
 
 
+# The served models at full width, card (bf16, as served) against the CPU
+# (f32).
+FULL_WIDTH_MODELS = ("depth-anything-v2", "dpt-large", "zoedepth")
+
+
+def _max_norm_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|, in f32 on the CPU."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _stage_hooks(model) -> tuple[dict, list]:
+    """Forward hooks that keep each encoder block's output, the encoder's
+    taps, the last fusion layer's output (the neck) and the model's raw
+    output (the head), as f32."""
+    caps: dict = {"blocks": []}
+    fusion = model.neck.fusion3 if hasattr(model, "neck") else model.fusion3
+
+    def keep(key):
+        def hook(_m, _i, out):
+            if key == "blocks":
+                caps["blocks"].append(out.float())
+            elif key == "taps":
+                caps["taps"] = [t.float() for t in out]
+            else:
+                caps[key] = out.float()
+        return hook
+
+    hooks = [blk.register_forward_hook(keep("blocks")) for blk in model.backbone.blocks]
+    hooks += [model.backbone.register_forward_hook(keep("taps")),
+              fusion.register_forward_hook(keep("neck")), model.register_forward_hook(keep("head"))]
+    return caps, hooks
+
+
+def _served_stages(pipe, frame: np.ndarray) -> tuple[dict, object]:
+    caps, hooks = _stage_hooks(pipe.model)
+    try:
+        res = pipe.run(frame, depth_scale=15.0)
+    finally:
+        for h in hooks:
+            h.remove()
+    return caps, res
+
+
+def _full_width_compare(cpu_caps: dict, caps: dict) -> dict:
+    """Each stage's max-normalized error, card against CPU."""
+    return {
+        "blocks": [_max_norm_err(g, c) for g, c in zip(caps["blocks"], cpu_caps["blocks"])],
+        "taps": [_max_norm_err(g, c) for g, c in zip(caps["taps"], cpu_caps["taps"])],
+        "neck": _max_norm_err(caps["neck"], cpu_caps["neck"]),
+        "head": _max_norm_err(caps["head"], cpu_caps["head"]),
+    }
+
+
+def phase_full_width(models, cpu_models) -> dict:
+    """The served DepthPipeline of each full-width model on the card (bf16,
+    the quantized bundle) against the CPU (f32, the f32 return), same
+    weights (the seeded init is made on the CPU), same frame: the raw
+    model output, max-normalized, within ``FULL_WIDTH_TOL``; the card's normalized
+    depth is not flat (p98 - p2 > 0) and more than one z value reaches the
+    points. Every stage's error is logged: each encoder block, the taps,
+    the neck (last fusion layer), the head's raw output; the depth
+    normalization on the card is held to the CPU's bit for bit on the
+    CPU's raw output."""
+    from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth
+
+    frame = _frame(518, 518, 0)
+    draw = torch.empty(4)
+    torch.nn.init.trunc_normal_(draw, std=0.1, a=-0.2, b=0.2, generator=torch.Generator().manual_seed(0))
+    log(f"this torch build's seeded init draws (trunc_normal_, seed 0): {draw.tolist()}")
+    out = {}
+    failed = []
+    for name in FULL_WIDTH_MODELS:
+        cpu_caps, cpu_res = _served_stages(cpu_models.get(name), frame)
+        caps, res = _served_stages(models.get(name), frame)
+        err = _full_width_compare(cpu_caps, caps)
+        raw, cpu_raw = caps["head"], cpu_caps["head"]
+        dn = normalize_depth(raw)
+        p2, p98 = torch.quantile(dn.flatten().cpu(), torch.tensor([0.02, 0.98])).tolist()
+        dn_same = torch.equal(normalize_depth(cpu_raw.cuda()).cpu(), normalize_depth(cpu_raw))
+        z = np.unique(res.points[:, 2])
+        log(f"full width {name}: raw output card [{raw.min():.4g}, {raw.max():.4g}] "
+            f"({float((raw > 0).float().mean()):.3f} > 0), CPU [{cpu_raw.min():.4g}, "
+            f"{cpu_raw.max():.4g}] ({float((cpu_raw > 0).float().mean()):.3f} > 0)")
+        log(f"full width {name}: max-normalized error card vs CPU, blocks "
+            f"{[round(e, 5) for e in err['blocks']]}, taps {[round(e, 5) for e in err['taps']]}, "
+            f"neck {err['neck']:.5f}, head {err['head']:.5f} (tol {FULL_WIDTH_TOL:g})")
+        log(f"full width {name}: normalized depth on the card p2 {p2:.4f} p98 {p98:.4f}; "
+            f"depthnorm card == CPU on the CPU's output {dn_same}; {len(z)} distinct z of "
+            f"{len(res.points)} points (CPU {len(np.unique(cpu_res.points[:, 2]))})")
+        out[name] = {**err, "p98_minus_p2": p98 - p2, "distinct_z": len(z)}
+        if not (err["head"] <= FULL_WIDTH_TOL and p98 - p2 > 0 and len(z) > 1 and dn_same):
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"the full-width forward on the card disagrees with the CPU: {failed}")
+    return out
+
+
 def _rmse(a, b) -> float:
     """Per-point RMSE of two results' packed points, on points both keep."""
     both = (a.packed[6] > 0.5) & (b.packed[6] > 0.5)
@@ -552,28 +681,28 @@ def _slice_card_vs_cpu(family: str, cpu_model, gpu_model, target) -> None:
     from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
 
     img = np.random.default_rng(0).integers(0, 256, (200, 260, 3), dtype=np.uint8)
-    cpu_f32 = None
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        for quantized in (False, True):
-            kw = dict(model_target=target, quantized_transfer=quantized)
-            cpu = DepthPipeline(cpu_model, **kw).run(img, depth_scale=15.0)
-            gpu = DepthPipeline(gpu_model, **kw).run(img, depth_scale=15.0)
+        cpu_runs = {q: DepthPipeline(cpu_model, model_target=target, quantized_transfer=q).run(
+            img, depth_scale=15.0) for q in (False, True)}
+        codec_rmse = _rmse(cpu_runs[True], cpu_runs[False])
+        for quantized, cpu in cpu_runs.items():
+            gpu = DepthPipeline(gpu_model, model_target=target, quantized_transfer=quantized).run(
+                img, depth_scale=15.0)
             kc, kg = cpu.packed[6] > 0.5, gpu.packed[6] > 0.5
             agree = float((kc == kg).mean())
             rmse = _rmse(cpu, gpu)
             tol, codec = SLICE_RMSE, ""
-            if not quantized:
-                cpu_f32 = cpu
-            elif family == "ZoeDepth":
+            if family == "ZoeDepth int8" or (family == "ZoeDepth" and quantized):
                 # The random-init ZoeDepth map spans only ±8 % of its mean
                 # (the others span their whole range), so the depth
-                # normalization scales its card-vs-CPU f32 differences up
-                # ~9x, and the bundle's per-tile codes flip by one step
-                # where the others' do not. Its bundle is held to the
-                # codec's own error on this map instead.
-                codec_rmse = _rmse(cpu, cpu_f32)
+                # normalization scales its card-vs-CPU differences up ~9x:
+                # the bundle's per-tile codes flip by one step where the
+                # others' do not, and so, through either return, do the
+                # int8 encoder's activation codes (one step is 1/127 of a
+                # token's max). Held to the bundle codec's own error on
+                # this map instead, the precision a served request has.
                 tol = max(SLICE_RMSE, codec_rmse)
                 codec = f", the codec's own rmse on the CPU {codec_rmse:.3e}"
             colors = bool(np.array_equal(cpu.packed[3:6], gpu.packed[3:6]))
@@ -588,6 +717,215 @@ def _slice_card_vs_cpu(family: str, cpu_model, gpu_model, target) -> None:
                 raise AssertionError(f"{family} slice on the card disagrees with the CPU")
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+# The served int8 matmul shapes at one image: (rows, in, out).
+INT8_SHAPES = {
+    "DA-V2 fc1": (1370, 384, 1536), "DA-V2 fc2": (1370, 1536, 384),
+    "DPT-Large fc1": (577, 1024, 4096), "DPT-Large fc2": (577, 4096, 1024),
+    "ZoeDepth fc1": (1025, 1024, 4096),
+}
+INT8_TOP_S = 1979e12  # the H100's dense int8 tensor-core peak
+
+
+def phase_int8_linear() -> dict:
+    """``QuantLinear`` on the card against its CPU run at the served
+    shapes, bf16 activations: the codes' int32 accumulator and the output
+    bit-identical. Times (device, CUDA graph): ``torch._int_mm`` alone
+    beside its bound, the whole ``QuantLinear`` forward, and the bf16
+    ``nn.Linear`` it replaces."""
+    from image_to_pointcloud_tpu_torch.models.quantize import (
+        QuantLinear,
+        int8_matmul,
+        quantize_activations,
+        quantize_dense_params,
+    )
+
+    gen = torch.Generator().manual_seed(4)
+    out = {}
+    for name, (m, k, n) in INT8_SHAPES.items():
+        lin = torch.nn.Linear(k, n)
+        x = torch.randn(m, k, generator=gen).to(torch.bfloat16)
+        cpu = QuantLinear(k, n)
+        cpu.load_state_dict(quantize_dense_params(lin.weight, lin.bias))
+        card = QuantLinear(k, n)
+        card.load_state_dict(cpu.state_dict())
+        card = card.to("cuda", torch.bfloat16)
+        codes, _ = quantize_activations(x)
+        xg, cg = x.cuda(), codes.cuda()
+        same_acc = torch.equal(int8_matmul(cg, card.weight_q.T).cpu(), int8_matmul(codes, cpu.weight_q.T))
+        with torch.inference_mode():
+            same_out = torch.equal(card(xg).cpu(), cpu(x))
+        lin = lin.to("cuda", torch.bfloat16)
+        res = {"int_mm_ms": device_time_ms(lambda: torch._int_mm(cg, card.weight_q.T)),
+               "quant_linear_ms": device_time_ms(lambda: card(xg)),
+               "bf16_linear_ms": device_time_ms(lambda: lin(xg)),
+               **bound(m * k + k * n + 4 * m * n, 2 * m * k * n, INT8_TOP_S)}
+        log(f"int8 {name} ({m}, {k}) x ({k}, {n}): accumulator card == CPU {same_acc}, output "
+            f"card == CPU {same_out}; _int_mm {res['int_mm_ms']:.5f} ms (bound "
+            f"{res['bound_ms']:.5f}, {res['bound_by']}), QuantLinear {res['quant_linear_ms']:.5f} ms, "
+            f"bf16 nn.Linear {res['bf16_linear_ms']:.5f} ms")
+        if not (same_acc and same_out):
+            raise AssertionError(f"QuantLinear on the card disagrees with the CPU at {name}")
+        out[name] = res
+    return out
+
+
+def _quantized(cfg, seed: int = 0):
+    """A model of ``cfg.with_quantized(True)`` from the seeded f32 init."""
+    from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, init_weights
+    from image_to_pointcloud_tpu_torch.models.quantize import quantize_encoder_params
+
+    sd = init_weights(build_model(cfg), torch.Generator().manual_seed(seed)).state_dict()
+    model = build_model(cfg.with_quantized(True))
+    model.load_state_dict(quantize_encoder_params(sd, cfg.backbone.num_layers), strict=True)
+    return model
+
+
+def phase_slice_int8() -> None:
+    """Phase 8 over the int8 encoders of the three tiny families."""
+    for family, (cfg, target) in _tiny_configs().items():
+        _slice_card_vs_cpu(f"{family} int8", _quantized(cfg), _quantized(cfg).to("cuda"), target)
+
+
+def _cloud_close(name: str, ours, ref, tol: float = SLICE_RMSE) -> None:
+    """Two (points, colours) clouds in the same order: per-point RMSE below
+    ``tol``, colours within half a level."""
+    rmse = float(np.sqrt(((ours[0] - ref[0]) ** 2).sum(1).mean())) if len(ref[0]) else 0.0
+    same = ours[0].shape == ref[0].shape
+    col = float(np.abs(ours[1] - ref[1]).max()) if same and len(ref[1]) else 0.0
+    log(f"{name}: {len(ours[0])}/{len(ref[0])} points, rmse {rmse:.3e} (< {tol:g}), colour "
+        f"max diff {col}")
+    if not (same and len(ref[0]) and rmse < tol and col <= 0.5):
+        raise AssertionError(f"{name} on the card disagrees with the CPU")
+
+
+def phase_advanced_tiny() -> None:
+    """The advanced pipelines on a tiny Depth-Anything (and its metric
+    head), card vs CPU, same weights, f32, TF32 off, on both transfer
+    contracts; the voxel op card vs CPU on one cloud."""
+    import dataclasses
+
+    from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, init_weights
+    from image_to_pointcloud_tpu_torch.ops.voxel import voxel_downsample
+    from image_to_pointcloud_tpu_torch.pipeline import advanced
+
+    cfg, target = _tiny_configs()["Depth-Anything-V2"]
+    mcfg = dataclasses.replace(cfg, neck=dataclasses.replace(cfg.neck, metric_depth=True, max_depth=5.0))
+    rng = np.random.default_rng(5)
+    img = _frame(300, 400, 5)
+    clip = np.stack([_frame(200, 260, 20 + i) for i in range(3)])
+    intr = advanced.CameraIntrinsics(fx=300.0, fy=310.0, cx=190.0, cy=160.0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            rel = init_weights(build_model(cfg), torch.Generator().manual_seed(0)).to(dev)
+            met = init_weights(build_model(mcfg), torch.Generator().manual_seed(0)).to(dev)
+            for q in (False, True):
+                runs[dev, "metric", q] = advanced.MetricPipeline(
+                    met, model_target=target, quantized_transfer=q).run(img, intr, step=2)
+                runs[dev, "highres", q] = advanced.HighResPipeline(
+                    rel, tile=140, overlap=28, model_target=target, quantized_transfer=q
+                ).run(img, step=2, voxel_budget=None)
+                runs[dev, "video", q] = advanced.VideoPipeline(
+                    rel, model_target=target, quantized_transfer=q).run(clip, step=2)
+        for (dev, name, q), res in runs.items():
+            if dev == "cuda":
+                _cloud_close(f"tiny {name} {'quantized' if q else 'f32'} transfer, card vs CPU",
+                             res, runs["cpu", name, q])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    pts = torch.from_numpy(rng.normal(0.0, 2.0, (200_000, 3)).astype(np.float32))
+    cols = torch.from_numpy(rng.uniform(0.0, 255.0, (200_000, 3)).astype(np.float32))
+    ref = voxel_downsample(pts, cols, 0.5)  # ~30 points a voxel
+    got = [t.cpu() for t in voxel_downsample(pts.cuda(), cols.cuda(), 0.5)]
+    cnt = int(ref[3])
+    err = max(float(((got[i][:cnt] - ref[i][:cnt]).abs() / ref[i][:cnt].abs().clamp_min(1e-3)).max())
+              for i in (0, 1))
+    log(f"voxel_downsample card vs CPU, 200,000 points: {int(got[3])}/{cnt} voxels, same order and "
+        f"means within {err:.2e} relative (<= {VOXEL_RTOL:g})")
+    if not (int(got[3]) == cnt and torch.equal(got[2], ref[2]) and err <= VOXEL_RTOL):
+        raise AssertionError("voxel_downsample on the card disagrees with the CPU")
+
+
+def _read_cloud(path) -> int:
+    """Point count of a CLI output file, read back by its format."""
+    from image_to_pointcloud_tpu_torch.io import read_las
+
+    data = path.read_bytes()
+    suffix = path.suffix
+    if suffix == ".ply":
+        return len(_check_ply(data))
+    if suffix == ".las":
+        pts = read_las(data)["points"]
+        n, ok = len(pts), np.isfinite(pts).all()
+    elif suffix == ".xyz":
+        rows = np.loadtxt(path, ndmin=2)
+        n, ok = len(rows), rows.shape[1] == 6 and np.isfinite(rows).all()
+    elif suffix == ".pcd":
+        head = data[: data.index(b"DATA binary\n")].decode()
+        n = int(head.split("POINTS ")[1].split()[0])
+        ok = len(data) == len(head) + len(b"DATA binary\n") + 16 * n
+    else:  # .glb
+        n = json.loads(data[20 : 20 + int.from_bytes(data[12:16], "little")])["accessors"][0]["count"]
+        ok = data[:4] == b"glTF" and int.from_bytes(data[8:12], "little") == len(data)
+    if not (ok and n > 0):
+        raise AssertionError(f"{path.name}: bad {suffix} file ({n} points)")
+    return n
+
+
+def phase_cli(out_dir: str) -> tuple[dict[str, int], dict[str, dict[str, float]]]:
+    """The CLI's paths in this process (``cli.main``), on the card, full
+    width, random init: each run read on its own (the launch counters
+    zeroed just before and read just after) and held to its K1/K2/K3
+    launches; each output file read back."""
+    from pathlib import Path
+
+    from image_to_pointcloud_tpu_torch import cli, cuda
+    from image_to_pointcloud_tpu_torch.io.image import encode_png
+
+    d = Path(out_dir) / "cli"
+    d.mkdir()
+    src = {"big": _frame(1024, 1024, 6), **{f"f{i}": _frame(518, 518, 7 + i) for i in range(4)}}
+    for name, img in src.items():
+        (d / f"{name}.png").write_bytes(encode_png(img))
+    f = {name: str(d / f"{name}.png") for name in src}
+    frames = [f[f"f{i}"] for i in range(4)]
+    # (run, argv, (K1, K2, K3) launches). HighRes: the anchor pass and the
+    # nine 518² tiles of a 1024² frame, one forward each (24 K1), the
+    # depth grid to the host (no K3). Video: four frames in one forward;
+    # --voxel unprojects them on the card in one K3 launch.
+    runs = [
+        ("highres", ["highres", f["big"], "-o", str(d / "highres.ply")], (24, 0, 0)),
+        ("metric DA-V2-metric-small", ["metric", f["f0"], "-o", str(d / "metric_da.ply"),
+                                       "--model", "depth-anything-v2-metric-small"], (12, 0, 0)),
+        ("metric zoedepth-small", ["metric", f["f0"], "-o", str(d / "metric_zoe.ply")], (0, 0, 0)),
+        ("video", ["video", *frames, "-o", str(d / "video.ply")], (12, 0, 0)),
+        ("video --voxel", ["video", *frames, "-o", str(d / "video_voxel.ply"), "--voxel", "0.05"],
+         (12, 0, 1)),
+        *[(f"convert {fmt}", ["convert", f["f1"], "-o", str(d / f"cloud.{fmt}")], (12, 1, 1))
+          for fmt in ("ply", "las", "xyz", "pcd", "glb")],
+        ("convert --int8", ["convert", f["f1"], "-o", str(d / "cloud_int8.ply"), "--int8"], (12, 1, 1)),
+    ]
+    counts: dict[str, int] = {}
+    per_run: dict[str, dict[str, float]] = {}
+    for name, argv, (k1, k2, k3) in runs:
+        for k in cuda.KERNELS:
+            k.reset()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        got = {k.name: k.launches for k in cuda.KERNELS}
+        n = _read_cloud(Path(argv[argv.index("-o") + 1]))
+        log(f"cli {name}: rc {rc}, {n} points read back, {time.perf_counter() - t0:.2f} s, "
+            f"launches {got}")
+        if rc != 0 or got != {"flash_attention": k1, "grid_knn": k2, "unproject": k3}:
+            raise AssertionError(f"cli {name}: rc {rc}, launched {got}; expected {(k1, k2, k3)}")
+        for kname, c in got.items():
+            counts[kname] = counts.get(kname, 0) + c
+            per_run.setdefault(kname, {})[f"cli {name}"] = c
+    return counts, per_run
 
 
 def _multipart(data: bytes, ctype: str) -> tuple[bytes, str]:
@@ -630,14 +968,21 @@ def _request(base: str, data: bytes, ctype: str = "image/png",
     return latency, {**st, "timings": timings}, ply
 
 
-def _check_ply(data: bytes, n: int) -> None:
+def _check_ply(data: bytes, n: int | None = None) -> np.ndarray:
+    """The PLY's points: ``n`` of them (when given), finite, and not flat
+    (more than one distinct z, p98 - p2 of z > 0)."""
     from image_to_pointcloud_tpu_torch.io import read_ply
 
     v = read_ply(data)["vertex"]
     xyz = np.stack([v["x"], v["y"], v["z"]], axis=1)
-    if not (len(xyz) == n > 0 and np.isfinite(xyz).all()):
+    ok = len(xyz) > 0 and (n is None or len(xyz) == n) and np.isfinite(xyz).all()
+    if ok:
+        p2, p98 = np.percentile(xyz[:, 2], [2, 98])
+        ok = len(np.unique(xyz[:, 2])) > 1 and p98 - p2 > 0
+    if not ok:
         raise AssertionError(f"bad PLY: {len(xyz)} points (expected {n}), finite "
-                             f"{np.isfinite(xyz).all()}")
+                             f"{np.isfinite(xyz).all()}, z {np.unique(xyz[:, 2])[:5]}...")
+    return xyz
 
 
 def _png(h: int, w: int, seed: int) -> bytes:
@@ -646,23 +991,28 @@ def _png(h: int, w: int, seed: int) -> bytes:
     return encode_png(_frame(h, w, seed))
 
 
-# The main paths the server drives: (ingest, model, 518² requests after
-# the cold one, K1 launches per request: one per transformer layer).
+# The main paths the server drives: (app: the default PNG one, the hybrid
+# JPEG one, or the one over the int8 encoder; model; 518² requests after
+# the cold one; K1 launches per request: one per transformer layer).
 SERVED_PATHS = [
     ("png", "depth-anything-v2", 5, 12),
     ("jpeg", "depth-anything-v2", 5, 12),
     ("png", "dpt-large", 3, 24),
     # BEiT's attention carries an additive bias: plain torch ops, not K1.
     ("png", "zoedepth", 3, 0),
+    # Attention is not quantized: K1 runs in every layer of the int8 model.
+    ("int8", "depth-anything-v2", 3, 12),
 ]
 
 
-def _served_requests(base: str, kind: str, model: str, n: int, k1_per_request: int
+def _served_requests(base: str, app: str, model: str, n: int, k1_per_request: int
                      ) -> dict[str, int]:
     """One main path through the server: the launch counters are zeroed
     just before its requests and read just after."""
     from image_to_pointcloud_tpu_torch import cuda
 
+    kind = "jpeg" if app == "jpeg" else "png"
+    path = f"{model} {app}"
     make, ctype, stage = {
         "png": (_png, "image/png", "decode"),
         "jpeg": (_jpeg, "image/jpeg", "jpeg_plan"),
@@ -670,32 +1020,32 @@ def _served_requests(base: str, kind: str, model: str, n: int, k1_per_request: i
     # The first request of a path builds the model and the kernels: not
     # timed as serving.
     lat, st, _ = _request(base, make(518, 518, 0), ctype, model)
-    log(f"server cold {model} {kind} request 518x518: {lat * 1e3:.1f} ms, "
-        f"timings {st['timings']}")
+    log(f"server cold {path} request 518x518: {lat * 1e3:.1f} ms, timings {st['timings']}")
 
     for k in cuda.KERNELS:
         k.reset()
     lats = []
-    extra = [(300, 400)] if (kind, model) == ("png", "depth-anything-v2") else []
+    extra = [(300, 400)] if (app, model) == ("png", "depth-anything-v2") else []
     for i, (h, w) in enumerate([(518, 518)] * n + extra):
         lat, st, ply = _request(base, make(h, w, 10 + i), ctype, model)
-        _check_ply(ply, st["results"]["pointCloud"]["points"])
+        xyz = _check_ply(ply, st["results"]["pointCloud"]["points"])
         if stage not in st["timings"]:
             raise AssertionError(f"{kind} request #{i} did not take the {stage} ingest: "
                                  f"timings {st['timings']}")
         if (h, w) == (518, 518):
             lats.append(lat)
-        log(f"{model} {kind} request {w}x{h} #{i}: {lat * 1e3:.1f} ms, "
-            f"{st['results']['pointCloud']['points']} points, timings {st['timings']}")
+        log(f"{path} request {w}x{h} #{i}: {lat * 1e3:.1f} ms, "
+            f"{st['results']['pointCloud']['points']} points, {len(np.unique(xyz[:, 2]))} distinct "
+            f"z in [{xyz[:, 2].min():.4g}, {xyz[:, 2].max():.4g}], timings {st['timings']}")
     counts = {k.name: k.launches for k in cuda.KERNELS}
     n_requests = n + len(extra)
-    log(f"server p50 latency 518x518 {model} {kind.upper()} -> PLY: "
+    log(f"server p50 latency 518x518 {path} -> PLY: "
         f"{statistics.median(lats) * 1e3:.1f} ms over {len(lats)} sequential requests")
-    log(f"kernel launches during the {n_requests} served {model} {kind} requests: {counts}")
+    log(f"kernel launches during the {n_requests} served {path} requests: {counts}")
     expected = {"flash_attention": k1_per_request * n_requests, "grid_knn": n_requests,
                 "unproject": n_requests}
     if counts != expected:
-        raise AssertionError(f"the {model} {kind} path launched {counts}; expected {expected}")
+        raise AssertionError(f"the {path} path launched {counts}; expected {expected}")
     return counts
 
 
@@ -720,32 +1070,37 @@ class _Server:
         _stop(self.loop, self.thread, self.server, self.app)
 
 
-def phase_server(out_dir: str, models) -> tuple[dict[str, int], dict[str, dict[str, float]]]:
+def phase_server(out_dir: str, models, int8_models
+                 ) -> tuple[dict[str, int], dict[str, dict[str, float]]]:
     """Launch counts summed over the served paths, and per request of each
     path."""
     counts: dict[str, int] = {}
     per_request: dict[str, dict[str, float]] = {}
-    servers = {"png": _Server(out_dir, models), "jpeg": None}
+    servers = {"png": _Server(out_dir, models)}
     try:
         servers["jpeg"] = _Server(out_dir, models, jpeg_device_decode=True)
-        for kind, model, n, k1_per_request in SERVED_PATHS:
+        servers["int8"] = _Server(out_dir, int8_models)
+        for app, model, n, k1_per_request in SERVED_PATHS:
             t0 = time.perf_counter()
-            path_counts = _served_requests(servers[kind].base, kind, model, n, k1_per_request)
+            path_counts = _served_requests(servers[app].base, app, model, n, k1_per_request)
             n_requests = path_counts["unproject"]  # one launch a request
             for name, c in path_counts.items():
                 counts[name] = counts.get(name, 0) + c
-                per_request.setdefault(name, {})[f"{model} {kind}"] = c / n_requests
-            log(f"served path {model} {kind}: {time.perf_counter() - t0:.1f} s")
+                per_request.setdefault(name, {})[f"{model} {app}"] = c / n_requests
+            log(f"served path {model} {app}: {time.perf_counter() - t0:.1f} s")
         for name in ("dpt-large", "zoedepth"):
             if not models.random_weights[name]:
                 raise AssertionError(f"{name} was expected to serve the random init")
         phase_triposr(servers["png"].base)
     finally:
         for srv in servers.values():
-            if srv is not None:
-                srv.stop()
+            srv.stop()
     if not models.get("depth-anything-v2").quantized_transfer:
         raise AssertionError("the server on the card did not default to the quantized bundle")
+    from image_to_pointcloud_tpu_torch.models.quantize import QuantLinear
+
+    if not any(isinstance(m, QuantLinear) for m in int8_models.get("depth-anything-v2").model.modules()):
+        raise AssertionError("the int8 app did not serve the int8 encoder")
     return counts, per_request
 
 
@@ -871,12 +1226,20 @@ def main() -> int:
     timed(phase_codecs)
     timed(phase_jpeg_decode)
     timed(phase_slice)
+    timed(phase_slice_int8)
+    timed(phase_advanced_tiny)
+    timed(phase_int8_linear)
 
     from image_to_pointcloud_tpu_torch.serve.models import ModelManager
 
     models = ModelManager("cuda")
+    timed(phase_full_width, models, ModelManager("cpu"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-        counts, per_request = timed(phase_server, out_dir, models)
+        counts, per_request = timed(phase_server, out_dir, models, ModelManager("cuda", int8=True))
+        cli_counts, cli_runs = timed(phase_cli, out_dir)
+        for name, c in cli_counts.items():
+            counts[name] += c
+            per_request[name].update(cli_runs[name])
         timed(phase_timing, models)
         timed(phase_profile, out_dir, models)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

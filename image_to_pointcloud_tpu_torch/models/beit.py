@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from image_to_pointcloud_tpu_torch.models.quantize import block_dense
 from image_to_pointcloud_tpu_torch.ops.resize import resize_batched
 
 __all__ = ["BeitBackbone", "BeitConfig", "relative_position_index"]
@@ -44,6 +45,7 @@ class BeitConfig:
     window_size: int = 24
     layer_norm_eps: float = 1e-12
     out_layers: Sequence[int] = (6, 12, 18, 24)  # 1-indexed stage outputs
+    quantized: bool = False  # int8 W8A8 block matmuls (models/quantize.py)
 
 
 @functools.lru_cache(maxsize=16)
@@ -93,10 +95,11 @@ class _BeitAttention(nn.Module):
         d = cfg.hidden_size
         self.num_heads = cfg.num_heads
         self.window = (cfg.window_size, cfg.window_size)
-        self.q = nn.Linear(d, d)
-        self.k = nn.Linear(d, d, bias=False)  # BEiT's key has no bias
-        self.v = nn.Linear(d, d)
-        self.proj = nn.Linear(d, d)
+        q = cfg.quantized
+        self.q = block_dense(q, d, d)
+        self.k = block_dense(q, d, d, bias=False)  # BEiT's key has no bias
+        self.v = block_dense(q, d, d)
+        self.proj = block_dense(q, d, d)
         num_rel = (2 * cfg.window_size - 1) ** 2 + 3
         self.rel_pos_table = nn.Parameter(torch.zeros(num_rel, cfg.num_heads))
         self._table_cache: tuple | None = None
@@ -143,8 +146,8 @@ class BeitBlock(nn.Module):
         self.attn = _BeitAttention(cfg)
         self.ls1 = nn.Parameter(torch.ones(d))
         self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.fc1 = nn.Linear(d, cfg.intermediate_size)
-        self.fc2 = nn.Linear(cfg.intermediate_size, d)
+        self.fc1 = block_dense(cfg.quantized, d, cfg.intermediate_size)
+        self.fc2 = block_dense(cfg.quantized, cfg.intermediate_size, d)
         self.ls2 = nn.Parameter(torch.ones(d))
 
     def forward(self, x, grid, index):

@@ -9,6 +9,11 @@ family by name, with these layout changes:
 * Dense kernel ``(in, out)`` → Linear weight ``(out, in)`` (the DA and
   ViT ``q``/``k``/``v``, BEiT's bias-less ``k``, the ``readout{i}``
   projections),
+* an int8 ``QuantDense`` (a quantized encoder block's matmul):
+  ``kernel_q`` int8 ``(in, out)`` → ``weight_q`` int8 ``(out, in)``,
+  ``kernel_scale`` f32 ``(out,)`` → ``weight_scale``, ``bias`` f32
+  ``(out,)`` kept (absent on BEiT's ``k``): :class:`.quantize.QuantLinear`'s
+  buffers. The int8 codes stay int8; every other leaf becomes float32,
 * Conv kernel HWIO → Conv2d weight OIHW (``proj{i}``, ``down3``, the
   fusion and head convs, ZoeDepth's ``mh_conv2``, ``seed_*``,
   ``projector{i}``, ``attractor{i}``, ``cond_log_binomial/mlp{1,2}``),
@@ -59,7 +64,13 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
         else:
             parts = [re.sub(r"^block(\d+)$", r"blocks.\1", p) for p in path]
             leaf = parts[-1]
-            if leaf == "kernel":
+            if leaf == "kernel_q":
+                parts[-1] = "weight_q"
+                sd[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr.T).astype(np.int8))
+                continue
+            if leaf == "kernel_scale":
+                parts[-1] = "weight_scale"
+            elif leaf == "kernel":
                 parts[-1] = "weight"
                 if arr.ndim == 2:
                     arr = arr.T

@@ -46,6 +46,11 @@ class DepthAnythingConfig:
     backbone: DinoV2Config = DinoV2Config()
     neck: DPTConfig = DPTConfig()
 
+    def with_quantized(self, on: bool = True) -> "DepthAnythingConfig":
+        """Int8 W8A8 encoder matmuls; convert a f32 model's weights with
+        ``models.quantize.quantize_encoder_params``."""
+        return dataclasses.replace(self, backbone=dataclasses.replace(self.backbone, quantized=on))
+
 
 def _cfg(
     hidden: int,
@@ -159,7 +164,17 @@ def init_weights(model: nn.Module, gen: torch.Generator) -> nn.Module:
     distributions (Flax's; the numbers differ, the statistics do not):
     lecun-normal matmul/conv weights, zero biases, unit LayerNorm and
     LayerScale, N(0, 0.02) CLS token and position embeddings, and for
-    BEiT a zero CLS token and zero relative-position tables."""
+    BEiT a zero CLS token and zero relative-position tables.
+
+    One deviation: the relative-depth head's last 1×1 conv (``head_conv3``,
+    ZoeDepth's ``rel_conv3``) takes the absolute value of its draw. Its
+    inputs are ReLU outputs, so a random sign pattern makes most of the
+    map negative or positive at once, and the final ReLU then flattens
+    what is negative: with seed 0 it flattened nearly all of DA-V2-Small's
+    and DPT-Large's maps on one torch build and less on another (torch's
+    ``trunc_normal_`` draws other numbers from one seed across builds).
+    Non-negative weights keep an untrained model's depth varied, so a
+    flat map on a device is a fault, not luck."""
     zero_cls = isinstance(model, ZoeDepth)
     for name, prm in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -178,4 +193,7 @@ def init_weights(model: nn.Module, gen: torch.Generator) -> nn.Module:
             _lecun_normal_(mod.weight, mod.weight.shape[0] * mod.weight[0, 0].numel(), gen)
         elif isinstance(mod, (nn.Linear, nn.Conv2d)):  # weight (out, in, ...)
             _lecun_normal_(mod.weight, mod.weight[0].numel(), gen)
+    for name, mod in model.named_modules():
+        if name.rsplit(".", 1)[-1] in ("head_conv3", "rel_conv3"):
+            mod.weight.abs_()
     return model

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from image_to_pointcloud_tpu_torch.models.attention import multi_head_attention
+from image_to_pointcloud_tpu_torch.models.quantize import block_dense
 from image_to_pointcloud_tpu_torch.ops.resize import resample_matrix
 
 __all__ = ["DinoV2Config", "DinoV2Backbone"]
@@ -35,14 +36,15 @@ class DinoV2Config:
     pos_embed_size: int = 37  # side of the native position-embedding grid
     layer_norm_eps: float = 1e-6
     out_layers: Sequence[int] = (2, 5, 8, 11)  # 0-indexed block outputs
+    quantized: bool = False  # int8 W8A8 block matmuls (models/quantize.py)
 
 
 class Mlp(nn.Module):
     def __init__(self, cfg: DinoV2Config):
         super().__init__()
-        d = cfg.hidden_size
-        self.fc1 = nn.Linear(d, d * cfg.mlp_ratio)
-        self.fc2 = nn.Linear(d * cfg.mlp_ratio, d)
+        d, q = cfg.hidden_size, cfg.quantized
+        self.fc1 = block_dense(q, d, d * cfg.mlp_ratio)
+        self.fc2 = block_dense(q, d * cfg.mlp_ratio, d)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))
@@ -54,10 +56,7 @@ class Block(nn.Module):
         d = cfg.hidden_size
         self.num_heads = cfg.num_heads
         self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.q = nn.Linear(d, d)
-        self.k = nn.Linear(d, d)
-        self.v = nn.Linear(d, d)
-        self.proj = nn.Linear(d, d)
+        self.q, self.k, self.v, self.proj = (block_dense(cfg.quantized, d, d) for _ in range(4))
         self.ls1 = nn.Parameter(torch.ones(d))
         self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.mlp = Mlp(cfg)

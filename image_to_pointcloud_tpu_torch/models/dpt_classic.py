@@ -47,6 +47,10 @@ class DPTClassicConfig:
     keep_aspect_ratio: bool = False
     resize_method: str = "bicubic_pil"
 
+    def with_quantized(self, on: bool = True) -> "DPTClassicConfig":
+        """Int8 W8A8 encoder matmuls (``models.quantize``)."""
+        return dataclasses.replace(self, backbone=dataclasses.replace(self.backbone, quantized=on))
+
 
 class _ClassicNeckHead(nn.Module):
     """Tap token sequences (CLS included) → relative inverse depth."""

@@ -26,6 +26,7 @@ from torch import nn
 
 from image_to_pointcloud_tpu_torch.models.attention import multi_head_attention
 from image_to_pointcloud_tpu_torch.models.dinov2 import Mlp
+from image_to_pointcloud_tpu_torch.models.quantize import block_dense
 from image_to_pointcloud_tpu_torch.ops.resize import resample_matrix
 
 __all__ = ["ViTBackbone", "ViTBlock", "ViTConfig"]
@@ -41,6 +42,7 @@ class ViTConfig:
     pos_embed_size: int = 24  # side of the native position-embedding grid
     layer_norm_eps: float = 1e-12
     out_layers: Sequence[int] = (5, 11, 17, 23)  # 0-indexed block outputs
+    quantized: bool = False  # int8 W8A8 block matmuls (models/quantize.py)
 
 
 class ViTBlock(nn.Module):
@@ -52,10 +54,7 @@ class ViTBlock(nn.Module):
         d = cfg.hidden_size
         self.num_heads = cfg.num_heads
         self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.q = nn.Linear(d, d)
-        self.k = nn.Linear(d, d)
-        self.v = nn.Linear(d, d)
-        self.proj = nn.Linear(d, d)
+        self.q, self.k, self.v, self.proj = (block_dense(cfg.quantized, d, d) for _ in range(4))
         self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.mlp = Mlp(cfg)
 

@@ -58,6 +58,10 @@ class ZoeDepthConfig:
     pad_reflect_factor: int = 3
     resize_method: str = "linear_ac"
 
+    def with_quantized(self, on: bool = True) -> "ZoeDepthConfig":
+        """Int8 W8A8 encoder matmuls (``models.quantize``)."""
+        return dataclasses.replace(self, backbone=dataclasses.replace(self.backbone, quantized=on))
+
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus`` in f32. ``F.softplus`` returns x itself above

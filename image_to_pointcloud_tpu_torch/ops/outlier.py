@@ -1,13 +1,15 @@
-"""Statistical outlier removal on depth-grid clouds: the windowed grid-kNN
-search as a hand-written CUDA kernel and its plain PyTorch version, and
-Open3D's threshold rule.
+"""Statistical outlier removal: the windowed grid-kNN search on depth-grid
+clouds as a hand-written CUDA kernel and its plain PyTorch version, the
+exact O(N²) kNN, and Open3D's threshold rule.
 
 Counterpart of ``image_to_pointcloud_tpu/ops/outlier.py`` (the scan form
-``grid_knn_mean_distances`` and ``outlier_keep_from_means``) and
+``grid_knn_mean_distances``, the exact ``knn_mean_distances`` and
+``statistical_outlier_mask``, ``outlier_keep_from_means``) and
 ``ops/outlier_pallas.py`` (the Pallas kernel). The kernel
 (``csrc/grid_knn.cu``) runs for CUDA tensors; CPU tensors take
 :func:`grid_knn_mean_distances_plain`, the scan form written as a loop
-over the window offsets.
+over the window offsets. The exact search is plain torch on every device,
+as it is jnp in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ __all__ = [
     "grid_knn_mean_distances",
     "grid_knn_mean_distances_cuda",
     "grid_knn_mean_distances_plain",
+    "knn_mean_distances",
     "outlier_keep_from_means",
+    "statistical_outlier_mask",
 ]
 
 _BIG = 1e30
@@ -128,3 +132,73 @@ def grid_knn_mean_distances(
     if points_grid.device.type == "cpu":
         return grid_knn_mean_distances_plain(points_grid, k=k, window=window)
     raise ValueError(f"grid_knn: unsupported device {points_grid.device}")
+
+
+def knn_mean_distances(
+    points: torch.Tensor,
+    valid: torch.Tensor | None = None,
+    *,
+    k: int = 20,
+    query_block: int = 512,
+    key_block: int = 2048,
+) -> torch.Tensor:
+    """(N, 3) points → (N,) mean distance to the k nearest neighbours
+    (self included, at 0), exact: Open3D's ``remove_statistical_outlier``
+    search, as the JAX package's blocked form.
+
+    The points are zero-padded to whole query and key blocks (padding is
+    no neighbour); per query block a running top-k of squared distances
+    ``|q|² + |k|² - 2 q·k`` is merged over the key blocks; invalid points
+    are no neighbour (``_BIG``) and get mean 0. The product ``q·k`` is
+    three f32 multiply-adds written out, not a matmul, so it stays true
+    f32 on CUDA whatever the TF32 setting (``precision=HIGHEST`` in JAX).
+    """
+    n = points.shape[0]
+    dev = points.device
+    p = points.float()
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    nq = -(-n // query_block) * query_block
+    nk = -(-n // key_block) * key_block
+    cap = max(nq, nk)
+    p_pad = torch.zeros((cap, 3), dtype=torch.float32, device=dev)
+    p_pad[:n] = p
+    v_pad = torch.zeros((cap,), dtype=torch.bool, device=dev)
+    v_pad[:n] = valid
+    keys, kvalid = p_pad[:nk], v_pad[:nk]
+    key_sq = (keys * keys).sum(dim=1)
+    big = torch.full((), _BIG, dtype=torch.float32, device=dev)
+    means = torch.empty((nq,), dtype=torch.float32, device=dev)
+    for q0 in range(0, nq, query_block):
+        q = p_pad[q0 : q0 + query_block]
+        q_sq = (q * q).sum(dim=1, keepdim=True)
+        best = big.expand(query_block, k)
+        for k0 in range(0, nk, key_block):
+            kp = keys[k0 : k0 + key_block]
+            dot = (q[:, None, 0] * kp[None, :, 0] + q[:, None, 1] * kp[None, :, 1]
+                   + q[:, None, 2] * kp[None, :, 2])
+            d2 = q_sq + key_sq[None, k0 : k0 + key_block] - 2.0 * dot
+            d2 = torch.where(kvalid[None, k0 : k0 + key_block], d2.clamp_min(0.0), big)
+            best = torch.topk(torch.cat([best, d2], dim=1), k, dim=1, largest=False).values
+        found = best < _BIG * 0.5
+        dist = torch.sqrt(best.clamp_min(0.0))
+        cnt = found.sum(dim=1).clamp_min(1)
+        means[q0 : q0 + query_block] = torch.where(found, dist, 0.0).sum(dim=1) / cnt
+    return torch.where(valid, means[:n], 0.0)
+
+
+def statistical_outlier_mask(
+    points: torch.Tensor,
+    valid: torch.Tensor | None = None,
+    *,
+    k: int = 20,
+    std_ratio: float = 2.0,
+    query_block: int = 512,
+    key_block: int = 2048,
+) -> torch.Tensor:
+    """(N,) keep mask with Open3D ``remove_statistical_outlier`` semantics
+    over the exact kNN."""
+    if valid is None:
+        valid = torch.ones((points.shape[0],), dtype=torch.bool, device=points.device)
+    means = knn_mean_distances(points, valid, k=k, query_block=query_block, key_block=key_block)
+    return outlier_keep_from_means(means, valid & (means > 0.0), std_ratio)

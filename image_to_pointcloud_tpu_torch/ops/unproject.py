@@ -17,6 +17,10 @@ compute, bit for bit:
   does (that rounds differently, and the host reconstruct shares this
   exact math),
 * rows ``[x, y, z, r, g, b, 1 (valid), 0]``.
+
+:func:`unproject_intrinsics` (metric depth with a real camera) and
+:func:`num_points` are jnp in the JAX package, not the Pallas kernel, and
+stay plain torch here.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ from image_to_pointcloud_tpu_torch import cuda
 __all__ = [
     "DENSITY_STRIDES",
     "focal_length",
+    "num_points",
     "unproject",
     "unproject_cuda",
+    "unproject_intrinsics",
     "unproject_plain",
 ]
 
@@ -43,6 +49,57 @@ def focal_length(h: int, w: int, fov_deg: float | None) -> float:
     if fov_deg and fov_deg > 0:
         return (w / 2.0) / math.tan(math.radians(fov_deg) / 2.0)
     return max(h, w) * 1.2
+
+
+def num_points(h: int, w: int, step: int) -> int:
+    """Point count for a strided (h, w) grid: ceil(h/step)*ceil(w/step)."""
+    return -(-h // step) * -(-w // step)
+
+
+def unproject_intrinsics(
+    depth_metric: torch.Tensor,
+    image_rgb: torch.Tensor,
+    *,
+    fx: "torch.Tensor | float",
+    fy: "torch.Tensor | float",
+    cx: "torch.Tensor | float",
+    cy: "torch.Tensor | float",
+    step: int = 1,
+) -> torch.Tensor:
+    """Metric-depth unprojection with a real camera model:
+    ``x = (u - cx)·z / fx``, ``y = (v - cy)·z / fy``, z the metric depth
+    itself. (..., h, w) depth and (..., h, w, 3) image → (..., 8, N) rows
+    ``[x, y, z, r, g, b, z > 0, 0]``; each intrinsic is a number or a
+    tensor with one value per leading index."""
+    dev = depth_metric.device
+    d = depth_metric[..., ::step, ::step].float()
+    rgb = image_rgb[..., ::step, ::step, :].float()
+    hh, ww = d.shape[-2:]
+    lead = d.shape[:-2]
+    n = hh * ww
+
+    def per_image(v):
+        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        return v.reshape(*v.shape, 1, 1)
+
+    fx, fy, cx, cy = (per_image(v) for v in (fx, fy, cx, cy))
+    u = torch.arange(ww, dtype=torch.float32, device=dev) * step - cx
+    v = (torch.arange(hh, dtype=torch.float32, device=dev) * step)[:, None] - cy
+    x = u * d / fx
+    y = v * d / fy
+    return torch.stack(
+        [
+            x.reshape(*lead, n),
+            y.reshape(*lead, n),
+            d.reshape(*lead, n),
+            rgb[..., 0].reshape(*lead, n),
+            rgb[..., 1].reshape(*lead, n),
+            rgb[..., 2].reshape(*lead, n),
+            (d.reshape(*lead, n) > 0).float(),
+            torch.zeros((*lead, n), dtype=torch.float32, device=dev),
+        ],
+        dim=-2,
+    )
 
 
 def unproject_plain(

@@ -9,7 +9,8 @@ Counterpart of ``image_to_pointcloud_tpu/pipeline/graph.py``'s
   family: DA-V2, classic DPT, ZoeDepth) → [ZoeDepth: bicubic back to the
   padded size, crop] → linear depth upscale → robust normalize →
   [gaussian blur] → gray preview → pinhole unprojection → packed
-  (B, 8, N) point buffer → windowed grid-kNN outlier mask (row 6) →
+  (B, 8, N) point buffer → windowed grid-kNN outlier mask (row 6; the
+  exact O(N²) kNN with ``exact_outlier``) →
   [quantized bundle: depth codec + keep bits + optional colours]
 
 Two ingests: decoded pixels (:meth:`DepthPipeline.submit_batch`), and the
@@ -60,6 +61,7 @@ from image_to_pointcloud_tpu_torch.ops.jpeg_sparse import (
 from image_to_pointcloud_tpu_torch.ops.outlier import (
     grid_knn_mean_distances,
     outlier_keep_from_means,
+    statistical_outlier_mask,
 )
 from image_to_pointcloud_tpu_torch.ops.resize import resize_batched, resize_planes
 from image_to_pointcloud_tpu_torch.ops.unproject import (
@@ -112,6 +114,9 @@ class PipelineOptions:
     smooth_ksize: int = 5
     fov: float | None = None
     refine: bool = True  # statistical outlier removal on/off
+    # Exact O(N²) kNN (Open3D-identical) instead of the windowed grid
+    # search (K2; exact on smooth surfaces, ~1000× faster).
+    exact_outlier: bool = False
 
 
 @dataclasses.dataclass
@@ -492,14 +497,17 @@ class DepthPipeline:
             dn_all, img, depth_scale=depth_scales, step=step, h=h, w=w,
             fov_deg=opts.fov,
         )
-        if opts.refine:
+        if opts.refine and opts.exact_outlier:
+            keep = torch.stack([statistical_outlier_mask(pk[:3].T) for pk in packed])
+            packed[:, 6] = keep.float()  # in place: packed is this call's own
+        elif opts.refine:
             hh, ww = -(-h // step), -(-w // step)
             # A strided view of rows 0-2: the CUDA kernel reads the planar
             # buffer in place.
             grids = packed[:, :3].transpose(1, 2).reshape(-1, hh, ww, 3)
             means = grid_knn_mean_distances(grids)
             keep = outlier_keep_from_means(means, means > 0.0, 2.0)
-            packed[:, 6] = keep.float()  # in place: packed is this call's own
+            packed[:, 6] = keep.float()
         if not self.quantized_transfer:
             return packed, prev
         rgb_rides = (not jpeg and (h, w) != (h0, w0)) or (jpeg and not host_colors)

@@ -71,7 +71,7 @@ def main() -> None:
     )
     # The JAX server's other paths: refused until ported.
     parser.add_argument("--generation", choices=["v1", "v2"], default="v1")
-    parser.add_argument("--mesh", default=None)
+    parser.add_argument("--mesh", default=cfg.mesh)
     args = parser.parse_args()
     if args.generation != "v1":
         parser.error(f"--generation {args.generation} {_NOT_PORTED}")

@@ -13,9 +13,12 @@ numbers), recorded in :attr:`ModelManager.random_weights`.
 ``triposr``/``instantmesh`` are the reference's capability stubs and have
 no pipeline.
 
-Not ported, and refused with an error rather than served as something
-else: the int8 W8A8 encoder (``IPC_TPU_INT8``) and orbax checkpoints
-(``<dir>/<name>/orbax``, written by the JAX package's ``train/``).
+``int8=True`` (or ``IPC_TPU_INT8=1``) serves the int8 W8A8 encoder
+(``models/quantize.py``): the f32 weights are quantized before the model
+moves to its device and dtype, as the JAX package quantizes its f32
+params. Not ported, and refused with an error rather than served as
+something else: orbax checkpoints (``<dir>/<name>/orbax``, written by the
+JAX package's ``train/``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from image_to_pointcloud_tpu_torch.models.depth_anything import (
     init_weights,
     preset,
 )
+from image_to_pointcloud_tpu_torch.models.quantize import quantize_encoder_params
 from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
 
 __all__ = ["CHECKPOINT_ENV", "DUMMY_MODELS", "ModelManager"]
@@ -51,12 +55,13 @@ class ModelManager:
         device: "str | torch.device" = "cuda",
         checkpoint_dir: str | None = None,
         model_target: "int | tuple[int, int] | None" = None,
+        int8: bool | None = None,
     ):
-        if os.environ.get("IPC_TPU_INT8", "").lower() in ("1", "true", "yes"):
-            raise RuntimeError(
-                "IPC_TPU_INT8 is set, but int8 W8A8 is not ported yet: unset it "
-                "to serve the bf16 encoder"
-            )
+        # Int8 W8A8 encoder matmuls: by argument, else IPC_TPU_INT8 (1,
+        # true or yes), as the JAX server reads it.
+        if int8 is None:
+            int8 = os.environ.get("IPC_TPU_INT8", "").lower() in ("1", "true", "yes")
+        self.int8 = int8
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
@@ -116,4 +121,11 @@ class ModelManager:
                 "random init took %.1f s", name, CHECKPOINT_ENV, time.perf_counter() - t0,
             )
         self.random_weights[name] = ckpt is None
+        if self.int8:
+            # Quantized from the f32 weights, before the cast to the
+            # compute dtype; the scales and biases stay f32.
+            sd = quantize_encoder_params(model.state_dict(), cfg.backbone.num_layers)
+            cfg = cfg.with_quantized(True)
+            model = build_model(cfg)
+            model.load_state_dict(sd, strict=True)
         return DepthPipeline(model.to(self.device, self.dtype), model_target=self.model_target)

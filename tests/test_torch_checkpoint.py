@@ -1,7 +1,7 @@
 """Checkpoint loading in the port, on the CPU: the safetensors reader
 against the ``safetensors`` package, the model manager's checkpoint
 directory (argument or ``IPC_TPU_CHECKPOINT_DIR``, both file layouts),
-and the two refusals (int8 W8A8 and orbax checkpoints are not ported).
+``IPC_TPU_INT8``, and the refusal of orbax checkpoints (not ported).
 
 HF state dicts come from the committed golden fixtures, written to
 safetensors here; loaded weights must equal the converter's output
@@ -125,15 +125,25 @@ def test_manager_without_checkpoint_uses_random_init(tmp_path, monkeypatch):
     assert pipe.model.backbone.cls_token.abs().sum() == 0  # BEiT's init
 
 
-@pytest.mark.parametrize("value", ["1", "true", "YES"])
+@pytest.mark.parametrize("value", ["1", "true", "YES", "0"])
 def test_int8_flag_is_refused(monkeypatch, value):
-    """The JAX server serves int8 encoder matmuls under IPC_TPU_INT8; the
-    port has no W8A8 path and must not silently serve bf16 instead."""
+    """``IPC_TPU_INT8`` as the JAX server reads it (1, true, yes in any
+    case; once refused, now served): the manager serves the int8 W8A8
+    encoder, every block matmul a QuantLinear, and a request runs; "0"
+    serves the float encoder."""
+    from image_to_pointcloud_tpu_torch.models.quantize import QuantLinear
+
+    monkeypatch.setitem(tda.PRESETS, "tiny-dpt", _tiny_cfg("dpt_classic"))
+    monkeypatch.delenv(CHECKPOINT_ENV, raising=False)
     monkeypatch.setenv("IPC_TPU_INT8", value)
-    with pytest.raises(RuntimeError, match="int8 W8A8 is not ported"):
-        ModelManager("cpu")
-    monkeypatch.setenv("IPC_TPU_INT8", "0")
-    ModelManager("cpu")
+    mm = ModelManager("cpu", model_target=64)
+    pipe = mm.get("tiny-dpt")
+    quant = [m for m in pipe.model.modules() if isinstance(m, QuantLinear)]
+    assert mm.int8 is (value != "0")
+    assert len(quant) == (0 if value == "0" else 6 * 4)  # q, k, v, proj, fc1, fc2 × 4 blocks
+    assert pipe.model.cfg.backbone.quantized is mm.int8
+    res = pipe.run(np.random.default_rng(0).integers(0, 256, (48, 64, 3), dtype=np.uint8))
+    assert res.kept_point_count > 0 and np.isfinite(res.points).all()
 
 
 def test_orbax_checkpoint_is_refused(tmp_path, monkeypatch):

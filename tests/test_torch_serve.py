@@ -327,7 +327,8 @@ def test_contract_routes(base):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the server entry point included, imports
+    """Every module of the port, the server and CLI entry points, the int8
+    encoder, the advanced pipelines and ``parallel/`` included, imports
     without JAX, Flax, transformers or safetensors (none of them is on the
     card machine), and without any module of the JAX package. A
     subprocess, because this test process has JAX loaded
@@ -336,7 +337,9 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys\n"
         "import image_to_pointcloud_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "assert 'image_to_pointcloud_tpu_torch.serve.__main__' in names, names\n"
+        "for m in ('serve.__main__', '__main__', 'cli', 'models.quantize', 'ops.voxel',\n"
+        "          'parallel.tiling', 'pipeline.advanced', 'io.glb', 'io.obj', 'io.pcd'):\n"
+        "    assert 'image_to_pointcloud_tpu_torch.' + m in names, (m, names)\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'transformers', 'safetensors',\n"
@@ -386,13 +389,26 @@ def test_port_source_is_standalone(rel):
             assert name != "scaled_dot_product_attention", f"{rel}:{node.lineno} calls SDPA"
 
 
-def test_server_refuses_unported_flags():
-    proc = subprocess.run(
-        [sys.executable, "-m", "image_to_pointcloud_tpu_torch.serve",
-         "--jpeg-device-decode", "--checkpoint-dir", "ckpt", "--mesh", "data=2"],
-        cwd=REPO, capture_output=True, text=True, timeout=120,
-    )
-    assert proc.returncode == 2
-    assert "--mesh is not ported" in proc.stderr
-    assert "--jpeg-device-decode is not ported" not in proc.stderr
-    assert "--checkpoint-dir is not ported" not in proc.stderr
+def test_server_refuses_unported_flags(tmp_path):
+    """``--mesh`` is refused, and so is a mesh from the config, as the JAX
+    server's flag defaults to it: ``IPC_TPU_MESH`` or a config file's
+    ``"mesh"``."""
+    import json
+    import os
+
+    cfg_file = tmp_path / "config.json"
+    cfg_file.write_text(json.dumps({"mesh": "data=2"}))
+    env = {k: v for k, v in os.environ.items() if k not in ("IPC_TPU_MESH", "IPC_TPU_CONFIG")}
+    for args, extra_env in [
+        (["--jpeg-device-decode", "--checkpoint-dir", "ckpt", "--mesh", "data=2"], {}),
+        (["--jpeg-device-decode"], {"IPC_TPU_MESH": "data=2"}),
+        ([], {"IPC_TPU_CONFIG": str(cfg_file)}),
+    ]:
+        proc = subprocess.run(
+            [sys.executable, "-m", "image_to_pointcloud_tpu_torch.serve", *args],
+            cwd=REPO, capture_output=True, text=True, timeout=120, env={**env, **extra_env},
+        )
+        assert proc.returncode == 2, (extra_env, proc.stderr)
+        assert "--mesh is not ported" in proc.stderr
+        assert "--jpeg-device-decode is not ported" not in proc.stderr
+        assert "--checkpoint-dir is not ported" not in proc.stderr

@@ -1,10 +1,11 @@
 """Where a 518² request's time goes in the PyTorch port, on one GPU.
 
     PYTHONPATH=. python3 tools/profile_torch_pipeline.py [--batch 1] [--iters 10]
-        [--ingest png|jpeg] [--transfer quantized|f32] [--model depth-anything-v2]
+        [--ingest png|jpeg] [--transfer quantized|f32] [--model depth-anything-v2] [--int8]
 
 Runs ``DepthPipeline`` with a served preset (``--model``; default
-Depth-Anything-V2-Small) in bf16 (random init) on 518×518 images, decoded pixels or q88 JPEGs through the hybrid
+Depth-Anything-V2-Small; ``--int8``: its int8 W8A8 encoder) in bf16
+(random init) on 518×518 images, decoded pixels or q88 JPEGs through the hybrid
 device decode, with the quantized bundle (the card's default) or the f32
 return: the host wall time of submit+collect (what a request waits for),
 then one ``torch.profiler`` window over ``--iters`` runs for device time
@@ -30,6 +31,7 @@ def main() -> None:
     ap.add_argument("--ingest", choices=["png", "jpeg"], default="png")
     ap.add_argument("--transfer", choices=["quantized", "f32"], default="quantized")
     ap.add_argument("--model", default="depth-anything-v2", help="a preset, e.g. dpt-large, zoedepth")
+    ap.add_argument("--int8", action="store_true", help="the int8 W8A8 encoder (IPC_TPU_INT8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_pipeline: CUDA is not available")
@@ -42,7 +44,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip())
-    served = ModelManager("cuda").get(args.model)
+    served = ModelManager("cuda", int8=args.int8).get(args.model)
     pipe = DepthPipeline(served.model, model_target=served.model_target, quantized_transfer=args.transfer == "quantized")
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:518, 0:518]
@@ -78,7 +80,7 @@ def main() -> None:
         run()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    print(f"{args.model} {args.ingest}/{args.transfer} batch {args.batch}: submit+collect median {wall * 1e3:.2f} ms "
+    print(f"{args.model}{' int8' if args.int8 else ''} {args.ingest}/{args.transfer} batch {args.batch}: submit+collect median {wall * 1e3:.2f} ms "
           f"({wall * 1e3 / args.batch:.2f} ms/image) over {args.iters}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
