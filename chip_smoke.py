@@ -78,7 +78,30 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     its exact K1/K2/K3 launches, each output file read back.
 15. batch-1 ``submit_batch`` + ``collect`` medians, in turns: PNG with
     the f32 return, PNG with the quantized bundle, JPEG with the bundle.
-16. ``/profile/start`` and ``/profile/stop`` around one ``dpt-large``
+16. the v2 server in this process at full width (DA-V2-Small, random
+    init): two 512² PNG generations, one with ``remove_background`` and no
+    remesh, one with ``remesh_option=triangle`` and ``target_count=2000``,
+    then three timed ones; each read on its own and held to exactly 12 K1,
+    1 K2 and 1 K3 launches; ``mesh.glb`` (the glTF magic, a JSON chunk with
+    an image, a texture and UVs), ``pointcloud.ply`` (not flat) and
+    ``metadata.json`` (its vertex and face counts equal the GLB's) checked;
+    the p50 with each stage (preprocess and matte, pipeline, mesh and GLB,
+    preview) and the metadata's ``generation_time``.
+17. the learned matte: the port's SegFormer on the golden fixture (an HF
+    state dict, its input and the HF logits) through ``convert_segformer``
+    on the card, TF32 off, within 5e-5 max-normalized; a random-init
+    full-width SegFormer-B0 ``MatteModel`` at 512², card vs CPU, and its
+    device time; a ``Depth3DProcessor`` with it generating on the card.
+18. fine-tuning on the card: the CLI's ``train`` on
+    ``depth-anything-v2-metric-small`` at full width (hidden 384, 12
+    layers, 518², batch 2, f32, remat) for 3 steps, each step timed, peak
+    memory; the loss finite, every q/k/v weight with a nonzero gradient and
+    no K1 launch; its checkpoint served by a v1 request through
+    ``IPC_TPU_CHECKPOINT_DIR`` (depth unlike the random init's; 12/1/1
+    launches); one tiny trainer step card vs CPU, TF32 off; ``convert-ckpt``
+    on an HF-layout safetensors written from a random state_dict, back bit
+    for bit.
+19. ``/profile/start`` and ``/profile/stop`` around one ``dpt-large``
     request: the Chrome trace must exist and name the CUDA kernels. Last,
     so that no profiler session precedes the timings of phase 15.
 
@@ -133,6 +156,15 @@ SLICE_KEEP_AGREE, SLICE_RMSE = 0.995, 1e-3
 # 1.5-2.7 % on the three served models; the card is held to about twice
 # the largest.
 FULL_WIDTH_TOL = 0.05
+# The SegFormer golden fixture on the card, max-normalized (PARITY.md's
+# model tolerance; TF32 off), and the B0 matte's foreground probability,
+# card vs CPU at 512² (TF32 off; f32 sums in another order).
+SEGFORMER_TOL, MATTE_TOL = 5e-5, 1e-4
+# A trainer step's gradients card vs CPU (f32, TF32 off), max-normalized
+# per tensor: cuDNN's weight-gradient algorithms for the neck's
+# convolutions sum in other orders than the CPU's (3.8e-3 at worst on an
+# H100 80GB HBM3 at 700 W; the backbone's linears agree to 1e-3).
+TRAIN_GRAD_TOL = 1e-2
 # The voxel op card vs CPU on one cloud: CUDA's scatter-add is atomic, so
 # each voxel's sum is taken in another order (a few f32 ulp of the mean).
 VOXEL_RTOL = 1e-5
@@ -928,9 +960,12 @@ def phase_cli(out_dir: str) -> tuple[dict[str, int], dict[str, dict[str, float]]
     return counts, per_run
 
 
-def _multipart(data: bytes, ctype: str) -> tuple[bytes, str]:
+def _multipart(data: bytes, ctype: str, fields: dict | None = None) -> tuple[bytes, str]:
     boundary = uuid.uuid4().hex
-    body = (
+    body = b"".join(
+        f"--{boundary}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n{v}\r\n".encode()
+        for k, v in (fields or {}).items()
+    ) + (
         f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
         f"filename=\"img\"\r\nContent-Type: {ctype}\r\n\r\n"
     ).encode() + data + f"\r\n--{boundary}--\r\n".encode()
@@ -945,15 +980,10 @@ def _http(url: str, data: bytes | None = None, ctype: str | None = None) -> byte
         return r.read()
 
 
-def _request(base: str, data: bytes, ctype: str = "image/png",
-             model: str = "depth-anything-v2") -> tuple[float, dict, bytes]:
-    """POST /process → poll /status → GET /download; returns (seconds from
-    the upload to the downloaded PLY, final status, the PLY)."""
-    body, ctype = _multipart(data, ctype)
-    t0 = time.perf_counter()
-    job = json.loads(_http(f"{base}/process?output_format=ply&point_density=medium"
-                           f"&depth_scale=15&model={model}", body, ctype))["job_id"]
-    deadline = t0 + 600
+def _completed(base: str, job: str) -> dict:
+    """Long-poll /status until the job ends; its final status, which must
+    be ``completed``."""
+    deadline = time.perf_counter() + 600
     while True:
         st = json.loads(_http(f"{base}/status/{job}?wait_ms=2000"))
         if st["status"] in ("completed", "error"):
@@ -962,6 +992,18 @@ def _request(base: str, data: bytes, ctype: str = "image/png",
             raise TimeoutError(f"job {job} did not finish")
     if st["status"] != "completed":
         raise AssertionError(f"job failed: {st['message']}")
+    return st
+
+
+def _request(base: str, data: bytes, ctype: str = "image/png",
+             model: str = "depth-anything-v2") -> tuple[float, dict, bytes]:
+    """POST /process → poll /status → GET /download; returns (seconds from
+    the upload to the downloaded PLY, final status, the PLY)."""
+    body, ctype = _multipart(data, ctype)
+    t0 = time.perf_counter()
+    job = json.loads(_http(f"{base}/process?output_format=ply&point_density=medium"
+                           f"&depth_scale=15&model={model}", body, ctype))["job_id"]
+    st = _completed(base, job)
     ply = _http(f"{base}{st['results']['downloadUrl']}")
     latency = time.perf_counter() - t0
     timings = json.loads(_http(f"{base}/timings/{job}"))["timings"]
@@ -1050,18 +1092,24 @@ def _served_requests(base: str, app: str, model: str, n: int, k1_per_request: in
 
 
 class _Server:
-    """The port's v1 app behind the first-party HTTP server, on a private
+    """The port's v1 app (or, with ``v2``, the v2 app, its model loaded by
+    its ``startup``) behind the first-party HTTP server, on a private
     event-loop thread."""
 
-    def __init__(self, out_dir: str, models, **app_kw):
+    def __init__(self, out_dir: str, models, v2: bool = False, **app_kw):
         from image_to_pointcloud_tpu_torch.serve.http import HttpServer
         from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
+        from image_to_pointcloud_tpu_torch.serve.app_v2 import create_v2_app
 
         self.loop = asyncio.new_event_loop()
-        self.app = create_v1_app(output_dir=out_dir, models=models, durable_jobs=False,
-                                 **app_kw)
+        create = create_v2_app if v2 else create_v1_app
+        self.app = create(output_dir=out_dir, models=models, durable_jobs=False, **app_kw)
         self.server = HttpServer(self.app.router, "127.0.0.1", 0)
         self.loop.run_until_complete(self.server.start())
+        if v2:
+            self.loop.run_until_complete(self.app.startup())
+            if self.app.processor is None:
+                raise AssertionError("the v2 app did not load its processor")
         self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
         self.thread.start()
         self.base = f"http://127.0.0.1:{self.server.bound_port}"
@@ -1194,6 +1242,451 @@ def phase_timing(models, reps: int = 20) -> None:
             f"(min {min(w) * 1e3:.2f}, max {max(w) * 1e3:.2f}) over {reps}, in turns")
 
 
+# The v2 generations that are checked one by one: (form fields). Each is a
+# 512² PNG; the first takes the classical matte, the second the remesher.
+V2_REQUESTS = [
+    {"remove_background": "true", "remesh_option": "none", "seed": "1"},
+    {"remove_background": "false", "remesh_option": "triangle", "target_count": "2000",
+     "seed": "2"},
+]
+V2_TIMED = 3  # generations for the p50 and the stage split
+
+
+def _glb_counts(data: bytes) -> tuple[int, int]:
+    """(vertices, faces) of a textured GLB, which must carry the glTF
+    magic, its own length, and a JSON chunk with an image, a texture and
+    UVs."""
+    n = int.from_bytes(data[12:16], "little")
+    doc = json.loads(data[20 : 20 + n])
+    prim = doc["meshes"][0]["primitives"][0]
+    ok = (data[:4] == b"glTF" and int.from_bytes(data[8:12], "little") == len(data)
+          and data[16:20] == b"JSON" and doc.get("images") and doc.get("textures")
+          and "TEXCOORD_0" in prim["attributes"])
+    if not ok:
+        raise AssertionError(f"bad GLB: {len(data)} bytes, keys {sorted(doc)}")
+    return (doc["accessors"][prim["attributes"]["POSITION"]]["count"],
+            doc["accessors"][prim["indices"]]["count"] // 3)
+
+
+class _StageClock:
+    """Wraps a Depth3DProcessor's stages in host clocks: preprocess and
+    matte (``_preprocess``), the pipeline (``pipeline.run``: the forward,
+    K1-K3 and the bundle's host unpack), the preview (``_preview``); mesh
+    and GLB is the rest of ``generate``."""
+
+    def __init__(self, proc):
+        self.proc, self.times = proc, []
+        self.orig = proc._preprocess, proc.pipeline, proc._preview, proc.generate
+        prep, pipe, prev, gen = self.orig
+        cur: dict = {}
+
+        def clock(key, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    cur[key] = cur.get(key, 0.0) + time.perf_counter() - t0
+            return run
+
+        class _Pipe:
+            run = staticmethod(clock("pipeline", pipe.run))
+
+        def generate(*a, **k):
+            cur.clear()
+            out = clock("total", gen)(*a, **k)
+            cur["mesh and GLB"] = cur["total"] - sum(
+                cur.get(x, 0.0) for x in ("preprocess and matte", "pipeline", "preview"))
+            self.times.append(dict(cur))
+            return out
+
+        proc._preprocess = clock("preprocess and matte", prep)
+        proc.pipeline = _Pipe()
+        proc._preview = clock("preview", prev)
+        proc.generate = generate
+
+    def restore(self) -> None:
+        self.proc._preprocess, self.proc.pipeline, self.proc._preview, self.proc.generate = self.orig
+
+
+def _v2_generation(base: str, fields: dict, seed: int) -> tuple[float, dict, dict]:
+    """POST /process → poll /status → the three downloads, checked: the GLB
+    textured with UVs and the metadata's vertex and face counts, the PLY's
+    points finite and not flat. Returns (seconds, results, counts)."""
+    body, ctype = _multipart(_png(512, 512, seed), "image/png",
+                             {"model": "depth3d", "texture_resolution": "1024", **fields})
+    t0 = time.perf_counter()
+    job = json.loads(_http(f"{base}/process", body, ctype))["job_id"]
+    res = _completed(base, job)["results"]
+    glb = _http(f"{base}{res['downloadUrl']}")
+    ply = _http(f"{base}{res['pointCloudUrl']}")
+    meta = json.loads(_http(f"{base}{res['metadataUrl']}"))
+    lat = time.perf_counter() - t0
+    verts, faces = _glb_counts(glb)
+    xyz = _check_ply(ply)
+    if (verts, faces) != (meta["vertex_count"], meta["face_count"]) or verts < 1000:
+        raise AssertionError(f"v2 GLB has {verts} vertices, {faces} faces; metadata "
+                             f"{meta['vertex_count']}, {meta['face_count']}")
+    return lat, res, {"vertices": verts, "faces": faces, "points": len(xyz),
+                      "glb_bytes": len(glb), "generation_time": meta["generation_time"]}
+
+
+def phase_v2(out_dir: str, models) -> dict[str, int]:
+    """The v2 server on the card at full width (DA-V2-Small, random init):
+    each generation read on its own (the launch counters zeroed just before
+    and read just after) and held to 12 K1, 1 K2 and 1 K3; the p50 of the
+    timed generations with each stage's median and the metadata's
+    ``generation_time``."""
+    from image_to_pointcloud_tpu_torch import cuda
+
+    srv = _Server(out_dir, models, v2=True)
+    clock = _StageClock(srv.app.processor)
+    counts: dict[str, int] = {}
+    lats = []
+    try:
+        fields = V2_REQUESTS + [V2_REQUESTS[0]] * V2_TIMED
+        for i, f in enumerate(fields):
+            for k in cuda.KERNELS:
+                k.reset()
+            lat, res, got = _v2_generation(srv.base, f, 20 + i)
+            launches = {k.name: k.launches for k in cuda.KERNELS}
+            log(f"v2 generation #{i} {f}: {lat * 1e3:.1f} ms to the downloads, {got}, "
+                f"launches {launches}, stages {clock.times[-1]}")
+            if launches != {"flash_attention": 12, "grid_knn": 1, "unproject": 1}:
+                raise AssertionError(f"v2 generation #{i} launched {launches}")
+            for name, c in launches.items():
+                counts[name] = counts.get(name, 0) + c
+            if i >= len(V2_REQUESTS):
+                lats.append((lat, got["generation_time"]))
+    finally:
+        clock.restore()
+        srv.stop()
+    timed_stages = clock.times[len(V2_REQUESTS):]
+    stages = {k: statistics.median(t[k] for t in timed_stages) * 1e3 for k in timed_stages[0]}
+    log(f"v2 p50 over {len(lats)} generations (512² PNG, classical matte, no remesh): "
+        f"{statistics.median(x for x, _ in lats) * 1e3:.1f} ms to the downloads, "
+        f"generation_time {statistics.median(g for _, g in lats) * 1e3:.1f} ms; stage "
+        f"medians (ms) {({k: round(v, 2) for k, v in stages.items()})}")
+    return counts
+
+
+def phase_matte(models) -> dict[str, int]:
+    """The learned matte: the port's SegFormer on the golden fixture (an HF
+    state dict, its input and the HF logits) on the card, TF32 off, within
+    ``SEGFORMER_TOL``; then a random-init full-width SegFormer-B0
+    ``MatteModel`` at 512², card against CPU (TF32 off), timed on the card
+    as served (torch's TF32 defaults), and inside a ``Depth3DProcessor``
+    whose ``generate`` runs on the card (12/1/1 launches)."""
+    from pathlib import Path
+
+    from image_to_pointcloud_tpu_torch import cuda
+    from image_to_pointcloud_tpu_torch.models.convert import convert_segformer
+    from image_to_pointcloud_tpu_torch.models.segformer import (
+        SegformerConfig,
+        SegformerMatte,
+        segformer_b0,
+    )
+    from image_to_pointcloud_tpu_torch.serve.matting import MatteModel
+    from image_to_pointcloud_tpu_torch.serve.processor3d import Depth3DProcessor
+
+    z = np.load(Path(__file__).resolve().parent / "tests" / "fixtures" / "golden_segformer.npz")
+    sd = {k[3:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd/")}
+    tiny = SegformerMatte(SegformerConfig(
+        hidden_sizes=(8, 16, 24, 32), depths=(1, 1, 1, 1), num_heads=(1, 2, 3, 4),
+        sr_ratios=(8, 4, 2, 1), decoder_hidden_size=16, num_labels=1))
+    tiny.load_state_dict(convert_segformer(sd), strict=True)
+    torch.manual_seed(0)
+    b0 = SegformerMatte(segformer_b0(1)).state_dict()  # torch's default init, seeded
+    frame = _frame(512, 512, 30)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            golden = tiny.cuda()(torch.from_numpy(z["input"]).cuda()).cpu().numpy()
+        err = _max_norm_err(torch.from_numpy(golden.transpose(0, 3, 1, 2)),
+                            torch.from_numpy(z["output"]))
+        card, cpu = MatteModel(b0, 1, "cuda"), MatteModel(b0, 1, "cpu")
+        p_card, p_cpu = card.prob(frame[None]), cpu.prob(frame[None])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    perr = float(np.abs(p_card - p_cpu).max())
+    log(f"SegFormer golden fixture on the card: max-normalized error {err:.3e} "
+        f"(tol {SEGFORMER_TOL:g}); B0 matte 512² card vs CPU: prob max abs diff {perr:.3e} "
+        f"(tol {MATTE_TOL:g}), prob range [{p_card.min():.4f}, {p_card.max():.4f}]")
+    if not (err <= SEGFORMER_TOL and perr <= MATTE_TOL):
+        raise AssertionError("the SegFormer matte on the card disagrees")
+
+    # The resampler uploads its weights each call, so a CUDA graph cannot
+    # capture the forward: its device time is the kernels' sum in a
+    # torch.profiler window (as tools/profile_torch_pipeline.py reads it).
+    from torch.profiler import ProfilerActivity, profile
+
+    x = (torch.from_numpy(frame[None]).cuda().float() / 255.0 - card._mean) / card._std
+    with torch.no_grad():
+        ms = cuda_time_ms(lambda: card.model(x), 20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                card.model(x)
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in events) / 10 / 1e3
+    log(f"SegFormer-B0 matte forward 512² on the card: device {dev:.4f} ms (kernel time per "
+        f"forward, 10 in a profiler window, {len(events)} kernels), host-inclusive {ms:.4f} ms "
+        f"(20 back to back)")
+    if not dev > 0:
+        raise AssertionError("the profiler saw no device time for the SegFormer forward")
+
+    proc = Depth3DProcessor(models.get("depth-anything-v2"), matte=card)
+    for k in cuda.KERNELS:
+        k.reset()
+    t0 = time.perf_counter()
+    out = proc.generate(_frame(512, 512, 31), remove_background=True, seed=0)
+    launches = {k.name: k.launches for k in cuda.KERNELS}
+    verts, faces = _glb_counts(out["mesh_data"])
+    _check_ply(out["point_cloud_data"])
+    log(f"Depth3DProcessor with the learned matte on the card: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, {verts} vertices, {faces} faces, "
+        f"launches {launches}")
+    if launches != {"flash_attention": 12, "grid_knn": 1, "unproject": 1} or (
+            verts, faces) != (out["metadata"]["vertex_count"], out["metadata"]["face_count"]):
+        raise AssertionError("the processor with the learned matte on the card misbehaved")
+    return launches
+
+
+# Port state_dict → HF ``DepthAnythingForDepthEstimation`` names: the
+# inverse of ``convert_depth_anything`` (Linear, Conv2d, ConvTranspose2d and
+# LayerNorm weights share their layout with HF; the patch embedding is
+# re-laid below).
+_HF_NAMES = [
+    (r"^backbone\.cls_token$", "backbone.embeddings.cls_token"),
+    (r"^backbone\.pos_embed$", "backbone.embeddings.position_embeddings"),
+    (r"^backbone\.patch_embed\.", "backbone.embeddings.patch_embeddings.projection."),
+    (r"^backbone\.norm\.", "backbone.layernorm."),
+    (r"^backbone\.blocks\.(\d+)\.q\.", r"backbone.encoder.layer.\1.attention.attention.query."),
+    (r"^backbone\.blocks\.(\d+)\.k\.", r"backbone.encoder.layer.\1.attention.attention.key."),
+    (r"^backbone\.blocks\.(\d+)\.v\.", r"backbone.encoder.layer.\1.attention.attention.value."),
+    (r"^backbone\.blocks\.(\d+)\.proj\.", r"backbone.encoder.layer.\1.attention.output.dense."),
+    (r"^backbone\.blocks\.(\d+)\.ls(\d)$", r"backbone.encoder.layer.\1.layer_scale\2.lambda1"),
+    (r"^backbone\.blocks\.(\d+)\.", r"backbone.encoder.layer.\1."),
+    (r"^neck\.proj(\d)\.", r"neck.reassemble_stage.layers.\1.projection."),
+    (r"^neck\.up(\d)\.", r"neck.reassemble_stage.layers.\1.resize."),
+    (r"^neck\.down3\.", "neck.reassemble_stage.layers.3.resize."),
+    (r"^neck\.conv(\d)\.", r"neck.convs.\1."),
+    (r"^neck\.fusion(\d)\.projection\.", r"neck.fusion_stage.layers.\1.projection."),
+    (r"^neck\.fusion(\d)\.res(\d)\.conv(\d)\.",
+     r"neck.fusion_stage.layers.\1.residual_layer\2.convolution\3."),
+    (r"^neck\.head_conv(\d)\.", r"head.conv\1."),
+]
+
+
+def hf_depth_anything(sd: dict, patch: int = 14) -> dict:
+    """A Depth-Anything state_dict of the port in HF's layout."""
+    import re
+
+    out = {}
+    for name, t in sd.items():
+        hf = next(re.sub(p, r, name) for p, r in _HF_NAMES if re.search(p, name))
+        if name == "backbone.patch_embed.weight":  # (D, p·p·3), (row, col, ch) → (D, 3, p, p)
+            t = t.reshape(t.shape[0], patch, patch, 3).permute(0, 3, 1, 2)
+        out[hf] = t.contiguous()
+    return out
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """f32 tensors → a ``.safetensors`` file (8-byte header length, the JSON
+    header, the raw little-endian buffers)."""
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        b = t.detach().float().cpu().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [off, off + len(b)]}
+        blobs.append(b)
+        off += len(b)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    path.write_bytes(len(h).to_bytes(8, "little") + h + b"".join(blobs))
+
+
+TRAIN_MODEL = "depth-anything-v2-metric-small"
+
+
+def _step_clock(store: list):
+    """Trainer.train_step wrapped in a host clock (the loss's ``float``
+    synchronizes); keeps each step's (trainer, seconds, loss)."""
+    from image_to_pointcloud_tpu_torch.train.trainer import Trainer
+
+    real = Trainer.train_step
+
+    def step(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(real(self, *a, **k))
+        store.append((self, time.perf_counter() - t0, loss))
+        return torch.tensor(loss)
+
+    Trainer.train_step = step
+    return lambda: setattr(Trainer, "train_step", real)
+
+
+def _trainer_card_vs_cpu() -> None:
+    """One step of a tiny metric DA-V2 (64-wide heads) on the card and on
+    the CPU from the same weights and batch, f32, TF32 off: the loss within
+    1e-4 relative, each gradient within ``TRAIN_GRAD_TOL`` of its tensor's
+    max |g| (the keys' biases, zero in exact arithmetic, to 1e-6 of the
+    model's), and
+    each parameter within 1e-3·lr plus what the gradient difference carries
+    through Adam's first step (tests/test_torch_train.py's bound)."""
+    from image_to_pointcloud_tpu_torch.models.depth_anything import (
+        DepthAnythingConfig,
+        build_model,
+        init_weights,
+    )
+    from image_to_pointcloud_tpu_torch.models.dinov2 import DinoV2Config
+    from image_to_pointcloud_tpu_torch.models.dpt import DPTConfig
+    from image_to_pointcloud_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = DepthAnythingConfig(
+        backbone=DinoV2Config(hidden_size=128, num_layers=2, num_heads=2, out_layers=(0, 1, 1, 1)),
+        neck=DPTConfig(hidden_size=128, neck_hidden_sizes=(32, 64, 128, 128),
+                       fusion_hidden_size=32, metric_depth=True, max_depth=2.0))
+    sd = init_weights(build_model(cfg), torch.Generator().manual_seed(0)).state_dict()
+    r = np.random.default_rng(0)
+    x = r.normal(0, 1, (2, 112, 112, 3)).astype(np.float32)
+    y = (r.random((2, 112, 112)) + 0.5).astype(np.float32)
+    # lr as tests/test_torch_train.py: 1e-3·lr must stay well above one
+    # f32 spacing of a parameter near 1 (the LayerScales), 1.2e-7.
+    lr, eps = 1e-3, 1e-8
+    tcfg = TrainConfig(learning_rate=lr, loss="silog")
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        card, cpu = Trainer(cfg, sd, "cuda", tcfg), Trainer(cfg, sd, "cpu", tcfg)
+        lc, lg = float(cpu.train_step(x, y)), float(card.train_step(x, y))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    ref = dict(cpu.model.named_parameters())
+    gmax = max(float(p.grad.abs().max()) for p in ref.values())
+    worst_g = worst_p = 0.0
+    bad = []
+    for name, p in card.model.named_parameters():
+        g, rg = p.grad.cpu(), ref[name].grad
+        if name.endswith(".k.bias"):
+            eg = max(float(g.abs().max()), float(rg.abs().max())) / (1e-6 * gmax)
+        else:
+            eg = float((g - rg).abs().max()) / (TRAIN_GRAD_TOL * float(rg.abs().max()))
+        m = torch.where(g * rg > 0, torch.minimum(g.abs(), rg.abs()), 0.0)
+        bound = 1e-3 * lr + lr * (g - rg).abs() * eps / (m + eps) ** 2
+        ep = float(((p.detach().cpu() - ref[name].detach()).abs() / bound).max())
+        worst_g, worst_p = max(worst_g, eg), max(worst_p, ep)
+        if eg > 1 or ep > 1:
+            bad.append(name)
+    log(f"trainer step card vs CPU (tiny metric DA-V2, TF32 off): loss {lg:.6f} / {lc:.6f}, "
+        f"worst gradient error {worst_g:.3f} of its bound, worst parameter error "
+        f"{worst_p:.3f} of its bound")
+    if abs(lg - lc) > 1e-4 * abs(lc) or bad:
+        raise AssertionError(f"the trainer step on the card disagrees with the CPU: {bad[:5]}")
+
+
+def phase_train(out_dir: str, models) -> dict:
+    """Fine-tuning on the card: the CLI's ``train`` on
+    ``depth-anything-v2-metric-small`` at full width (518², batch 2, f32,
+    remat) for 3 steps, each step timed, peak memory read; the loss finite,
+    every q/k/v weight with a nonzero gradient, and no K1 launch (the
+    trainer's model runs the plain attention). Its checkpoint then serves a
+    v1 request through ``IPC_TPU_CHECKPOINT_DIR``, whose depth differs from
+    the random init's; a tiny trainer step card vs CPU; ``convert-ckpt`` on
+    an HF-layout safetensors written from a random state_dict, round trip
+    bit for bit."""
+    import os
+    import re
+    from pathlib import Path
+
+    from image_to_pointcloud_tpu_torch import cli, cuda
+    from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, init_weights, preset
+    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
+    from image_to_pointcloud_tpu_torch.train.checkpoint import restore_params
+
+    root = Path(out_dir) / "ckpts"
+    steps: list = []
+    undo = _step_clock(steps)
+    for k in cuda.KERNELS:
+        k.reset()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # The JAX TrainConfig's fine-tuning rate: the CLI's default, 1e-4,
+        # left a spatially constant map after 3 steps (all served z equal).
+        rc = cli.main(["train", "--model", TRAIN_MODEL, "--steps", "3", "--batch-size", "2",
+                       "--image-size", "518", "--learning-rate", "5e-6",
+                       "-o", str(root / TRAIN_MODEL / "torch")])
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k.name: k.launches for k in cuda.KERNELS}
+    trainer = steps[-1][0]
+    qkv = {n: float(p.grad.abs().max()) for n, p in trainer.model.named_parameters()
+           if re.fullmatch(r"backbone\.blocks\.\d+\.[qkv]\.weight", n)}
+    times = [t for _, t, _ in steps]
+    losses = [loss for _, _, loss in steps]
+    log(f"train {TRAIN_MODEL} 518² batch 2 f32 remat on the card: rc {rc}, losses {losses}, "
+        f"step times (ms) {[round(t * 1e3, 2) for t in times]} (median of steps 2-3 "
+        f"{statistics.median(times[1:]) * 1e3:.2f}), peak memory {peak:.3f} GiB, launches "
+        f"{launches}, {len(qkv)} q/k/v weights, least max |grad| {min(qkv.values()):.3e}")
+    if not (rc == 0 and len(steps) == 3 and np.isfinite(losses).all() and len(qkv) == 36
+            and min(qkv.values()) > 0 and not any(launches.values())):
+        raise AssertionError("the fine-tuning run on the card failed its checks")
+    del trainer, steps
+
+    saved = restore_params(root / TRAIN_MODEL / "torch")
+    init = init_weights(build_model(preset(TRAIN_MODEL)), torch.Generator().manual_seed(0))
+    if all(torch.equal(v, init.state_dict()[k]) for k, v in saved.items()):
+        raise AssertionError("the fine-tuned checkpoint equals the random init")
+    # The fine-tuned checkpoint served through IPC_TPU_CHECKPOINT_DIR, one
+    # v1 request read on its own; the random init serves the same frame.
+    os.environ["IPC_TPU_CHECKPOINT_DIR"] = str(root)
+    try:
+        tuned = ModelManager("cuda")
+    finally:
+        del os.environ["IPC_TPU_CHECKPOINT_DIR"]
+    frame = _png(518, 518, 40)
+    srv, srv_init = _Server(out_dir, tuned), _Server(out_dir, models)
+    try:
+        for k in cuda.KERNELS:
+            k.reset()
+        lat, st, ply = _request(srv.base, frame, model=TRAIN_MODEL)
+        served = {k.name: k.launches for k in cuda.KERNELS}
+        _, _, ply_init = _request(srv_init.base, frame, model=TRAIN_MODEL)
+    finally:
+        srv.stop()
+        srv_init.stop()
+    z, z_init = _check_ply(ply)[:, 2], _check_ply(ply_init)[:, 2]
+    differs = len(z) != len(z_init) or not np.array_equal(z, z_init)
+    log(f"the fine-tuned checkpoint served (v1, {TRAIN_MODEL}): {lat * 1e3:.1f} ms, "
+        f"{len(z)} points, {len(np.unique(z))} distinct z in [{z.min():.4g}, {z.max():.4g}] "
+        f"(random init: {len(z_init)} points, {len(np.unique(z_init))} distinct z in "
+        f"[{z_init.min():.4g}, {z_init.max():.4g}]), differs {differs}, launches {served}")
+    if tuned.random_weights.get(TRAIN_MODEL) is not False or not differs or served != {
+            "flash_attention": 12, "grid_knn": 1, "unproject": 1}:
+        raise AssertionError("the fine-tuned checkpoint was not served")
+
+    _trainer_card_vs_cpu()
+
+    # convert-ckpt: an HF-layout safetensors written from a random
+    # state_dict comes back bit for bit.
+    sd = init_weights(build_model(preset("depth-anything-v2")),
+                      torch.Generator().manual_seed(1)).state_dict()
+    src = Path(out_dir) / "hf" / "model.safetensors"
+    src.parent.mkdir()
+    write_safetensors(src, hf_depth_anything(sd))
+    rc = cli.main(["convert-ckpt", str(src.parent), "--model", "depth-anything-v2",
+                   "-o", str(Path(out_dir) / "converted")])
+    got = restore_params(Path(out_dir) / "converted" / "depth-anything-v2" / "torch")
+    same = rc == 0 and set(got) == set(sd) and all(torch.equal(got[k], v) for k, v in sd.items())
+    log(f"convert-ckpt depth-anything-v2 from HF safetensors: rc {rc}, {len(got)} tensors, "
+        f"round trip bit for bit {same}")
+    if not same:
+        raise AssertionError("convert-ckpt did not give back the state_dict")
+    return {"served": served, "step_ms": [t * 1e3 for t in times], "peak_gib": peak}
+
+
 def timed(phase, *args):
     t0 = time.perf_counter()
     out = phase(*args)
@@ -1241,6 +1734,15 @@ def main() -> int:
             counts[name] += c
             per_request[name].update(cli_runs[name])
         timed(phase_timing, models)
+        v2_counts = timed(phase_v2, out_dir, models)
+        matte_counts = timed(phase_matte, models)
+        train = timed(phase_train, out_dir, models)
+        for path, path_counts, n in [("depth3d v2", v2_counts, v2_counts["unproject"]),
+                                     ("depth3d learned matte", matte_counts, 1),
+                                     (f"{TRAIN_MODEL} fine-tuned", train["served"], 1)]:
+            for name, c in path_counts.items():
+                counts[name] += c
+                per_request[name][path] = c / n
         timed(phase_profile, out_dir, models)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 

@@ -9,13 +9,18 @@ Counterpart of ``image_to_pointcloud_tpu/cli.py``:
     python -m image_to_pointcloud_tpu_torch highres big.png --tile 518 --overlap 128
     python -m image_to_pointcloud_tpu_torch metric photo.jpg --fov 70
     python -m image_to_pointcloud_tpu_torch video a.png b.png -o fused.ply [--voxel 0.05]
+    python -m image_to_pointcloud_tpu_torch train --steps 100 -o ckpts/depth-anything-v2-metric-small/torch
+    python -m image_to_pointcloud_tpu_torch convert-ckpt model.safetensors --model depth-anything-v2 -o ckpts
     python -m image_to_pointcloud_tpu_torch serve --port 8077   # → serve/__main__
 
 Models run on the card (``--device cuda``, bf16, the CUDA kernels) unless
 ``--device cpu`` asks for the CPU (f32, the plain versions); ``--int8``
 serves the int8 W8A8 encoder, as ``IPC_TPU_INT8=1`` does. Same-size inputs
-go through one batch. ``train`` and ``convert-ckpt`` are refused: they
-need ``train/``, which is not ported yet.
+go through one batch. ``train`` fine-tunes a metric preset in f32 on one
+device (``train/``) and writes the port's checkpoint, which the server
+reads from ``<IPC_TPU_CHECKPOINT_DIR>/<model>/torch``; ``convert-ckpt``
+writes the same from HF safetensors. ``--mesh`` (``train`` and ``serve``)
+is refused: ``parallel/`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,10 +29,6 @@ import argparse
 import sys
 import time
 from pathlib import Path
-
-_NOT_PORTED = ("needs train/, which is not ported to the PyTorch package yet "
-               "(see ROADMAP.md)")
-
 
 def _add_runtime(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint-dir", default=None)
@@ -257,6 +258,138 @@ def cmd_metric(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """Fine-tune on one device: the trainer, the double-buffered input
+    pipeline and the port's checkpoint (train/); the saved checkpoint plugs
+    into serving via IPC_TPU_CHECKPOINT_DIR/<model>/torch."""
+    import numpy as np
+    import torch
+
+    from image_to_pointcloud_tpu_torch.models.depth_anything import preset
+    from image_to_pointcloud_tpu_torch.pipeline.advanced import _is_metric
+    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
+    from image_to_pointcloud_tpu_torch.train.checkpoint import save_checkpoint
+    from image_to_pointcloud_tpu_torch.train.data import (
+        prefetch_to_device,
+        synthetic_depth_batches,
+    )
+    from image_to_pointcloud_tpu_torch.train.eval import depth_metrics
+    from image_to_pointcloud_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = preset(args.model)
+    if not _is_metric(cfg):
+        raise SystemExit(
+            f"{args.model} is a relative-depth preset; fine-tuning targets "
+            "metric ground truth — pick a metric preset (zoedepth*, "
+            "depth-anything-v2-metric-*)"
+        )
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    # Initial weights: a checkpoint under --checkpoint-dir, else the
+    # seeded random init, in f32 on the CPU.
+    state = ModelManager("cpu", checkpoint_dir=args.checkpoint_dir).load_model(
+        args.model, cfg).state_dict()
+    trainer = Trainer(cfg, state, device,
+                      TrainConfig(learning_rate=args.learning_rate, loss=args.loss, remat=True))
+
+    hw = (args.image_size, args.image_size)
+    if args.data:
+        blob = np.load(args.data)
+        imgs_all = np.asarray(blob["images"], np.float32)
+        deps_all = np.asarray(blob["depths"], np.float32)
+
+        # Hold out the FIRST batch_size rows for eval; training samples
+        # from the remainder only (eval on trained rows would report
+        # memorization as generalization).
+        n_eval = min(args.batch_size, max(0, len(imgs_all) - args.batch_size))
+        ev_imgs, ev_deps = imgs_all[:n_eval], deps_all[:n_eval]
+
+        def batches():
+            n = len(imgs_all)
+            rng = np.random.default_rng(0)
+            lo = n_eval if n_eval < n else 0
+            for _ in range(args.steps):
+                idx = rng.integers(lo, n, args.batch_size)
+                yield imgs_all[idx], deps_all[idx]
+
+        stream = batches()
+        if n_eval == 0:  # dataset too small to split; eval on all rows
+            ev_imgs, ev_deps = imgs_all, deps_all
+    else:
+        stream = synthetic_depth_batches(batch_size=args.batch_size, image_hw=hw, steps=args.steps)
+        ev_imgs, ev_deps = next(
+            synthetic_depth_batches(batch_size=args.batch_size, image_hw=hw, steps=1, seed=99)
+        )
+
+    t0 = time.perf_counter()
+    for step, (x, y) in enumerate(prefetch_to_device(stream, device=device), 1):
+        loss = float(trainer.train_step(x, y))
+        if step == 1 or step % 10 == 0 or step == args.steps:
+            print(f"step {step:>5d}  loss {loss:.5f}")
+        if args.eval_every and step % args.eval_every == 0:
+            pred = trainer.predict(ev_imgs)
+            m = {k: round(float(v), 4)
+                 for k, v in depth_metrics(pred, torch.as_tensor(ev_deps, device=device)).items()}
+            print(f"  eval: {m}")
+    print(f"{args.steps} steps in {time.perf_counter() - t0:.1f}s")
+
+    save_checkpoint(args.output, trainer.state_dict(), step=args.steps)
+    print(f"checkpoint -> {args.output} (serve it from IPC_TPU_CHECKPOINT_DIR/<model>/torch)")
+    return 0
+
+
+def cmd_convert_ckpt(args) -> int:
+    """HF safetensors → the port's checkpoint, which serving loads directly.
+
+    Rehearses the reference's weight ingestion (backend/app.py:80-81
+    pulls depth-anything/Depth-Anything-V2-Small-hf from the hub) for an
+    air-gapped host: download ``model.safetensors`` on any machine, convert
+    once here, then point ``IPC_TPU_CHECKPOINT_DIR`` at the output root.
+    Serving prefers ``<root>/<model>/torch`` over on-load safetensors
+    conversion (serve/models.py)."""
+    from image_to_pointcloud_tpu_torch.models.convert import convert_checkpoint, load_safetensors
+    from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, preset
+    from image_to_pointcloud_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = preset(args.model)
+    src = Path(args.safetensors)
+    if src.is_dir():
+        src = src / "model.safetensors"
+    if not src.exists():
+        raise SystemExit(f"no such checkpoint: {src}")
+    try:
+        sd = convert_checkpoint(cfg, load_safetensors(str(src)))
+    except KeyError as e:
+        raise SystemExit(
+            f"checkpoint tree mismatch for {args.model}: missing tensor {e}"
+        ) from None
+
+    # Shape-check against the architecture before writing anything: a
+    # checkpoint for the wrong family member should fail here, not at
+    # the first HTTP request.
+    expect = build_model(cfg).state_dict()
+    if set(expect) != set(sd):
+        missing = sorted(set(expect) - set(sd))[:5]
+        extra = sorted(set(sd) - set(expect))[:5]
+        raise SystemExit(
+            f"checkpoint tree mismatch for {args.model}: missing={missing} extra={extra}"
+        )
+    bad = [(k, tuple(sd[k].shape), tuple(expect[k].shape))
+           for k in expect if sd[k].shape != expect[k].shape]
+    if bad:
+        raise SystemExit(f"checkpoint shape mismatch for {args.model}: {bad[:5]}")
+
+    out = Path(args.output) / args.model / "torch"
+    save_checkpoint(out, sd)
+    n = sum(v.numel() for v in sd.values())
+    print(
+        f"{src} -> {out}  ({len(sd)} tensors, {n / 1e6:.1f}M params); "
+        f"serve with IPC_TPU_CHECKPOINT_DIR={args.output}"
+    )
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="image_to_pointcloud_tpu_torch",
@@ -316,16 +449,53 @@ def main(argv=None) -> int:
     _add_runtime(pv)
     pv.set_defaults(fn=cmd_video)
 
-    # The JAX CLI's training commands: on the command line, refused.
-    for name, text in (("train", "fine-tune a depth model"),
-                       ("convert-ckpt", "HF safetensors weights → a serving checkpoint")):
-        sub.add_parser(name, help=f"{text} (not ported)", add_help=False).set_defaults(fn=None)
+    pt = sub.add_parser(
+        "train",
+        help="fine-tune a depth model (synthetic or .npz data) on one device and "
+        "save a checkpoint the server can load",
+    )
+    pt.add_argument("--model", default="depth-anything-v2-metric-small")
+    pt.add_argument("--data", default=None,
+                    help=".npz with arrays images (N,H,W,3 u8/f32) and "
+                    "depths (N,H,W); default: synthetic depth fields")
+    pt.add_argument("--steps", type=int, default=100)
+    pt.add_argument("--batch-size", type=int, default=8)
+    pt.add_argument("--image-size", type=int, default=518)
+    pt.add_argument("--learning-rate", type=float, default=1e-4)
+    # The JAX CLI also lists "l1", which its TrainConfig has no loss for
+    # (a KeyError at the first step); here argparse refuses it.
+    pt.add_argument("--loss", default="silog", choices=["silog", "affine_invariant"])
+    pt.add_argument("--mesh", default=None,
+                    help="multi-device mesh: refused until parallel/ is ported")
+    pt.add_argument("--checkpoint-dir", default=None,
+                    help="initial weights (the server's checkpoint layout)")
+    pt.add_argument("-o", "--output", default="checkpoints/finetuned",
+                    help="checkpoint output directory (serve it as "
+                    "<IPC_TPU_CHECKPOINT_DIR>/<model>/torch)")
+    pt.add_argument("--eval-every", type=int, default=0,
+                    help="print depth metrics on a held-out batch every N steps")
+    pt.add_argument("--device", default="cuda",
+                    help="'cuda' (the default) or 'cpu'; f32 either way")
+    pt.set_defaults(fn=cmd_train)
+
+    pck = sub.add_parser(
+        "convert-ckpt",
+        help="HF safetensors weights → a checkpoint for serving "
+        "(point IPC_TPU_CHECKPOINT_DIR at the output root)",
+    )
+    pck.add_argument("safetensors", help="model.safetensors file or its directory")
+    pck.add_argument("--model", default="depth-anything-v2")
+    pck.add_argument("-o", "--output", default="checkpoints",
+                     help="checkpoint root; weights land in <output>/<model>/torch")
+    pck.set_defaults(fn=cmd_convert_ckpt)
+
     ps = sub.add_parser("serve", help="run the HTTP service", add_help=False)
     ps.set_defaults(fn=None)
 
     args, rest = parser.parse_known_args(argv)
-    if args.command in ("train", "convert-ckpt"):
-        parser.error(f"{args.command} {_NOT_PORTED}")
+    if getattr(args, "mesh", None):
+        parser.error("--mesh is not ported to the PyTorch package yet: parallel/ "
+                     "(see ROADMAP.md)")
     if args.command == "serve":
         from image_to_pointcloud_tpu_torch.serve.__main__ import main as serve_main
 

@@ -6,9 +6,14 @@ kernels (``csrc/flash_attention.cu``: bf16 on the tensor cores with
 ``wgmma``, f32 on the FP32 cores) replace the Pallas TPU kernel
 ``flash_attention``; :func:`attention_plain` is ``_attention_xla``'s
 math. The choice follows the tensor's device: a CUDA tensor launches the
-kernel (or raises), a CPU tensor takes the plain version. Unlike the JAX
-package there is no minimum sequence length for the kernel: the TPU's
-``flash_min_seq`` gate was a TPU measurement.
+kernel (or raises), a CPU tensor takes the plain version; a caller that
+asks for no flash (``use_flash=False``, the backbones'
+``use_flash_attention``, as the trainer builds them) gets the plain
+version on any device. Unlike the JAX package there is no minimum
+sequence length for the kernel: the TPU's ``flash_min_seq`` gate was a
+TPU measurement. The kernel has no backward: :func:`flash_attention`
+refuses inputs that require grad while grad mode is on, rather than
+return an output that silently cuts the gradient.
 """
 
 from __future__ import annotations
@@ -53,8 +58,14 @@ def flash_attention(
     place (bf16: every pointer and stride a multiple of 16 bytes). The
     output has the input dtype and shape, laid out as (B, N, H, 64)
     underneath so merging the heads back is free. bf16 runs the
-    tensor-core kernel, f32 the SIMT one.
+    tensor-core kernel, f32 the SIMT one. Forward only: under grad mode,
+    inputs that require grad raise.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: call it under torch.no_grad() or "
+            "torch.inference_mode(), or build the model with use_flash_attention=False"
+        )
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -88,9 +99,10 @@ def flash_attention(
 
 
 def multi_head_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int, use_flash: bool = True
 ) -> torch.Tensor:
-    """(B, N, D) projected q/k/v → attention output (B, N, D)."""
+    """(B, N, D) projected q/k/v → attention output (B, N, D): K1 on a CUDA
+    tensor when ``use_flash``, else the plain version."""
     b, n, dm = q.shape
     dh = dm // num_heads
 
@@ -98,9 +110,9 @@ def multi_head_attention(
         return x.reshape(b, n, num_heads, dh).transpose(1, 2)
 
     qh, kh, vh = split(q), split(k), split(v)
-    if q.device.type == "cuda":
+    if use_flash and q.device.type == "cuda":
         o = flash_attention(qh, kh, vh)
-    elif q.device.type == "cpu":
+    elif q.device.type in ("cpu", "cuda"):
         o = attention_plain(qh, kh, vh, 1.0 / math.sqrt(dh))
     else:
         raise ValueError(f"multi_head_attention: unsupported device {q.device}")

@@ -1,14 +1,15 @@
 """Flax parameter tree → the port's ``state_dict``.
 
 The JAX package's parameters of any depth family (DepthAnything,
-DPTClassic, ZoeDepth), given as a nested dict of numpy arrays (e.g.
-``jax.tree_util.tree_map(np.asarray, params)``, or
-:mod:`.convert`'s HF mapping), map onto the port's model of the same
-family by name, with these layout changes:
+DPTClassic, ZoeDepth) and of the v2 matte (``SegformerMatte``), given as
+a nested dict of numpy arrays (e.g. ``jax.tree_util.tree_map(np.asarray,
+params)``, or :mod:`.convert`'s HF mapping), map onto the port's model of
+the same family by name, with these layout changes:
 
 * Dense kernel ``(in, out)`` → Linear weight ``(out, in)`` (the DA and
   ViT ``q``/``k``/``v``, BEiT's bias-less ``k``, the ``readout{i}``
-  projections),
+  projections, SegFormer's ``q``/``k``/``v``/``proj``, ``fc1``/``fc2`` and
+  ``linear_c{i}``),
 * an int8 ``QuantDense`` (a quantized encoder block's matmul):
   ``kernel_q`` int8 ``(in, out)`` → ``weight_q`` int8 ``(out, in)``,
   ``kernel_scale`` f32 ``(out,)`` → ``weight_scale``, ``bias`` f32
@@ -16,11 +17,16 @@ family by name, with these layout changes:
   buffers. The int8 codes stay int8; every other leaf becomes float32,
 * Conv kernel HWIO → Conv2d weight OIHW (``proj{i}``, ``down3``, the
   fusion and head convs, ZoeDepth's ``mh_conv2``, ``seed_*``,
-  ``projector{i}``, ``attractor{i}``, ``cond_log_binomial/mlp{1,2}``),
+  ``projector{i}``, ``attractor{i}``, ``cond_log_binomial/mlp{1,2}``;
+  SegFormer's ``embed{s}``, ``sr``, ``linear_fuse``, ``classifier``, and
+  its depthwise ``dwconv``, whose (3, 3, 1, C) kernel becomes the
+  ``groups=C`` weight (C, 1, 3, 3)),
 * ``up0``/``up1`` matmul kernels ``(k, k, in, out)`` → ConvTranspose2d
   weight ``(in, out, k, k)``, under ``neck`` or ZoeDepth's
   ``reassemble`` alike,
-* LayerNorm ``scale`` → ``weight``,
+* LayerNorm ``scale`` → ``weight``, and so SegFormer's frozen BatchNorm
+  ``bn/scale``; its running statistics ``bn/mean`` and ``bn/var`` keep
+  their names (the module's buffers),
 * ``block{i}`` → ``blocks.{i}``; ``patch_embed``/``patch_bias`` → the
   ``patch_embed`` Linear; ``ls1``/``ls2``, ``cls_token``, ``pos_embed``
   and BEiT's ``rel_pos_table`` carried across as they are.

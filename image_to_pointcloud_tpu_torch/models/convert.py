@@ -2,10 +2,11 @@
 
 Counterpart of ``image_to_pointcloud_tpu/models/convert.py``. An HF state
 dict (``Depth-Anything-V2-*-hf``, ``Intel/dpt-large``,
-``Intel/zoedepth-nyu-kitti`` layouts) is first mapped onto the JAX
-package's Flax parameter tree as numpy arrays, the same name map as the
-JAX converters, and then through :func:`.bridge.state_dict_from_flax`; so
-one map per family serves both the checkpoint path and the parity tests.
+``Intel/zoedepth-nyu-kitti`` layouts, and ``SegformerForSemanticSegmentation``
+for the v2 matte) is first mapped onto the JAX package's Flax parameter
+tree as numpy arrays, the same name map as the JAX converters, and then
+through :func:`.bridge.state_dict_from_flax`; so one map per family serves
+both the checkpoint path and the parity tests.
 The layout changes on the way to Flax:
 
 * Linear ``(out, in)`` → kernel ``(in, out)``,
@@ -14,8 +15,8 @@ The layout changes on the way to Flax:
 * the patch conv → the flattened patchify kernel ``(p·p·3, D)`` in (row,
   column, channel) order.
 
-:func:`load_safetensors` reads the file format itself (F32, F16, BF16),
-with no ``safetensors`` package.
+:func:`load_safetensors` reads the file format itself (F32, F16, BF16,
+I64), with no ``safetensors`` package.
 """
 
 from __future__ import annotations
@@ -34,11 +35,15 @@ __all__ = [
     "convert_checkpoint",
     "convert_depth_anything",
     "convert_dpt_classic",
+    "convert_segformer",
     "convert_zoedepth",
     "load_safetensors",
 ]
 
-_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+# The float weights, and I64 for the BatchNorm step counters
+# (``num_batches_tracked``) that HF SegFormer checkpoints carry.
+_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+           "I64": torch.int64}
 
 
 def load_safetensors(path: str) -> dict[str, torch.Tensor]:
@@ -246,6 +251,56 @@ def convert_zoedepth(sd: Mapping, num_layers: int) -> dict:
         "mlp2": _conv(sd, f"{mh}.conditional_log_binomial.mlp.2"),
     }
     return params
+
+
+def convert_segformer(sd: Mapping) -> dict[str, torch.Tensor]:
+    """The port's :class:`.segformer.SegformerMatte` ``state_dict`` from an
+    HF ``SegformerForSemanticSegmentation`` state dict (e.g. a matte-head
+    fine-tune of nvidia/mit-b0); the stages and blocks are counted from
+    the checkpoint's keys."""
+    tree: dict = {}
+    enc = "segformer.encoder"
+    stage = 0
+    while f"{enc}.patch_embeddings.{stage}.proj.weight" in sd:
+        tree[f"embed{stage}"] = _conv(sd, f"{enc}.patch_embeddings.{stage}.proj")
+        tree[f"embed_norm{stage}"] = _ln(sd, f"{enc}.patch_embeddings.{stage}.layer_norm")
+        tree[f"stage_norm{stage}"] = _ln(sd, f"{enc}.layer_norm.{stage}")
+        j = 0
+        while f"{enc}.block.{stage}.{j}.layer_norm_1.weight" in sd:
+            pre = f"{enc}.block.{stage}.{j}"
+            attn = {
+                "q": _dense(sd, f"{pre}.attention.self.query"),
+                "k": _dense(sd, f"{pre}.attention.self.key"),
+                "v": _dense(sd, f"{pre}.attention.self.value"),
+                "proj": _dense(sd, f"{pre}.attention.output.dense"),
+            }
+            if f"{pre}.attention.self.sr.weight" in sd:
+                attn["sr"] = _conv(sd, f"{pre}.attention.self.sr")
+                attn["sr_norm"] = _ln(sd, f"{pre}.attention.self.layer_norm")
+            tree[f"stage{stage}_block{j}"] = {
+                "norm1": _ln(sd, f"{pre}.layer_norm_1"),
+                "attn": attn,
+                "norm2": _ln(sd, f"{pre}.layer_norm_2"),
+                "mlp": {
+                    "fc1": _dense(sd, f"{pre}.mlp.dense1"),
+                    "dwconv": _conv(sd, f"{pre}.mlp.dwconv.dwconv"),
+                    "fc2": _dense(sd, f"{pre}.mlp.dense2"),
+                },
+            }
+            j += 1
+        stage += 1
+    for i in range(stage):
+        tree[f"linear_c{i}"] = _dense(sd, f"decode_head.linear_c.{i}.proj")
+    tree["linear_fuse"] = _conv(sd, "decode_head.linear_fuse", bias=False)
+    bn = "decode_head.batch_norm"
+    tree["bn"] = {
+        "scale": _np(sd[f"{bn}.weight"]),
+        "bias": _np(sd[f"{bn}.bias"]),
+        "mean": _np(sd[f"{bn}.running_mean"]),
+        "var": _np(sd[f"{bn}.running_var"]),
+    }
+    tree["classifier"] = _conv(sd, "decode_head.classifier")
+    return state_dict_from_flax(tree)
 
 
 def convert_checkpoint(cfg, sd: Mapping) -> dict[str, torch.Tensor]:

@@ -18,6 +18,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from image_to_pointcloud_tpu_torch.models.attention import multi_head_attention
 from image_to_pointcloud_tpu_torch.models.quantize import block_dense
@@ -37,6 +38,12 @@ class DinoV2Config:
     layer_norm_eps: float = 1e-6
     out_layers: Sequence[int] = (2, 5, 8, 11)  # 0-indexed block outputs
     quantized: bool = False  # int8 W8A8 block matmuls (models/quantize.py)
+    # K1 on a CUDA tensor; False runs the plain attention on any device
+    # (the trainer's models: K1 has no backward).
+    use_flash_attention: bool = True
+    # torch.utils.checkpoint around each block while grad is on (the
+    # trainer's remat): one block's activations live at a time.
+    remat_blocks: bool = False
 
 
 class Mlp(nn.Module):
@@ -55,6 +62,7 @@ class Block(nn.Module):
         super().__init__()
         d = cfg.hidden_size
         self.num_heads = cfg.num_heads
+        self.use_flash = cfg.use_flash_attention
         self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.q, self.k, self.v, self.proj = (block_dense(cfg.quantized, d, d) for _ in range(4))
         self.ls1 = nn.Parameter(torch.ones(d))
@@ -65,7 +73,8 @@ class Block(nn.Module):
     def forward(self, x):
         h = self.norm1(x)
         h = multi_head_attention(
-            self.q(h), self.k(h), self.v(h), num_heads=self.num_heads
+            self.q(h), self.k(h), self.v(h), num_heads=self.num_heads,
+            use_flash=self.use_flash,
         )
         x = x + self.ls1 * self.proj(h)
         return x + self.ls2 * self.mlp(self.norm2(x))
@@ -119,8 +128,9 @@ class DinoV2Backbone(nn.Module):
         ph, pw = pixels.shape[1] // cfg.patch_size, pixels.shape[2] // cfg.patch_size
         x = self.embed(pixels)
         taps = {}
+        remat = cfg.remat_blocks and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
             if i in cfg.out_layers:
                 taps[i] = x
         return [

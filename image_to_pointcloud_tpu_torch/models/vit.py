@@ -23,6 +23,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from image_to_pointcloud_tpu_torch.models.attention import multi_head_attention
 from image_to_pointcloud_tpu_torch.models.dinov2 import Mlp
@@ -43,6 +44,12 @@ class ViTConfig:
     layer_norm_eps: float = 1e-12
     out_layers: Sequence[int] = (5, 11, 17, 23)  # 0-indexed block outputs
     quantized: bool = False  # int8 W8A8 block matmuls (models/quantize.py)
+    # K1 on a CUDA tensor; False runs the plain attention on any device
+    # (the trainer's models: K1 has no backward).
+    use_flash_attention: bool = True
+    # torch.utils.checkpoint around each block while grad is on (the
+    # trainer's remat): one block's activations live at a time.
+    remat_blocks: bool = False
 
 
 class ViTBlock(nn.Module):
@@ -53,6 +60,7 @@ class ViTBlock(nn.Module):
         super().__init__()
         d = cfg.hidden_size
         self.num_heads = cfg.num_heads
+        self.use_flash = cfg.use_flash_attention
         self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.q, self.k, self.v, self.proj = (block_dense(cfg.quantized, d, d) for _ in range(4))
         self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
@@ -61,7 +69,8 @@ class ViTBlock(nn.Module):
     def forward(self, x):
         h = self.norm1(x)
         h = multi_head_attention(
-            self.q(h), self.k(h), self.v(h), num_heads=self.num_heads
+            self.q(h), self.k(h), self.v(h), num_heads=self.num_heads,
+            use_flash=self.use_flash,
         )
         x = x + self.proj(h)
         return x + self.mlp(self.norm2(x))
@@ -107,8 +116,9 @@ class ViTBackbone(nn.Module):
         x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
         x = x + self._pos_embed(ph, pw)
         taps = {}
+        remat = cfg.remat_blocks and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
             if i in cfg.out_layers:
                 taps[i] = x
         return [taps[i] for i in cfg.out_layers]

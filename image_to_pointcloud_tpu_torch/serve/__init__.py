@@ -1,1 +1,1 @@
-"""The v1 HTTP service on the PyTorch pipeline."""
+"""The HTTP services (v1 point clouds, v2 textured assets) on the PyTorch pipeline."""

@@ -1,12 +1,14 @@
 """Service entry point: ``python -m image_to_pointcloud_tpu_torch.serve``.
 
-Serves the v1 API (the reference's ``backend/app.py`` contract) on the
+Serves the v1 API (the reference's ``backend/app.py`` contract) or, with
+``--generation v2``, the textured-asset API (``backend/main.py``) on the
 PyTorch pipeline. Defaults come from the typed config tree
 (``core/config.py``: built-in defaults ← ``IPC_TPU_CONFIG`` JSON file ←
 ``IPC_TPU_*`` env vars), then CLI flags. ``--checkpoint-dir`` (or
-``IPC_TPU_CHECKPOINT_DIR``) points at HF-layout safetensors checkpoints.
-Flags of the JAX server whose paths are not ported yet are refused with a
-clear error.
+``IPC_TPU_CHECKPOINT_DIR``) points at HF-layout safetensors checkpoints or
+the port's own ``<model>/torch/checkpoint.pt``. ``--mesh`` (and a mesh
+from the config) is refused with a clear error: ``parallel/`` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ def main() -> None:
     cfg = load_config(os.environ.get("IPC_TPU_CONFIG"))
 
     parser = argparse.ArgumentParser(
-        description="image→point-cloud v1 service on PyTorch (CUDA)"
+        description="image→point-cloud service on PyTorch (CUDA)"
     )
     parser.add_argument("--host", default=cfg.host)
     parser.add_argument("--port", type=int, default=cfg.port)
@@ -65,23 +67,25 @@ def main() -> None:
     parser.add_argument("--log-json", action="store_true", default=cfg.log_json)
     parser.add_argument(
         "--checkpoint-dir", default=cfg.checkpoint_dir,
-        help="directory of HF-layout checkpoints, <dir>/<model>/model.safetensors "
-        "or <dir>/<model>.safetensors (default: IPC_TPU_CHECKPOINT_DIR; "
-        "without one, a deterministic random init)",
+        help="checkpoint root: <dir>/<model>/torch/checkpoint.pt (train or "
+        "convert-ckpt), else HF-layout <dir>/<model>/model.safetensors or "
+        "<dir>/<model>.safetensors; <dir>/matting/model.safetensors for the v2 "
+        "matte (default: IPC_TPU_CHECKPOINT_DIR; without one, a deterministic "
+        "random init)",
     )
-    # The JAX server's other paths: refused until ported.
-    parser.add_argument("--generation", choices=["v1", "v2"], default="v1")
+    parser.add_argument(
+        "--generation", choices=["v1", "v2"], default="v1",
+        help="v1: the depth point-cloud API; v2: the textured 3D asset API",
+    )
+    # The JAX server's multi-device mesh: refused until parallel/ is ported.
     parser.add_argument("--mesh", default=cfg.mesh)
     args = parser.parse_args()
-    if args.generation != "v1":
-        parser.error(f"--generation {args.generation} {_NOT_PORTED}")
     if args.mesh:
         parser.error(f"--mesh {_NOT_PORTED}")
 
     from image_to_pointcloud_tpu_torch.serve.http import HttpServer
     from image_to_pointcloud_tpu_torch.utils.logging import configure_logging
     from image_to_pointcloud_tpu_torch.pipeline import graph as _graph
-    from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
     from image_to_pointcloud_tpu_torch.serve.models import ModelManager
 
     configure_logging(json_lines=args.log_json)
@@ -97,32 +101,58 @@ def main() -> None:
             warmup_sizes.append((int(hh), int(ww)))
 
     async def run() -> None:
-        app = create_v1_app(
-            output_dir=args.output_dir,
-            models=ModelManager(args.device, checkpoint_dir=args.checkpoint_dir),
-            honor_fov=args.honor_fov,
-            mesh_method=args.mesh_method,
-            warmup_sizes=warmup_sizes,
-            batch_window_ms=cfg.batch_window_ms,
-            max_batch=cfg.max_batch,
-            durable_jobs=cfg.durable_jobs,
-            max_jobs=cfg.max_jobs,
-            defaults=cfg.defaults,
-            max_file_size=cfg.max_file_size,
-            max_preview_points=cfg.max_preview_points,
-            mesh_preview_tris=cfg.mesh_preview_tris,
-            jpeg_device_decode=args.jpeg_device_decode,
-            lazy_export=not args.eager_export,
-            lazy_export_max_bytes=cfg.lazy_export_max_bytes,
-        )
-        server = HttpServer(app.router, args.host, args.port, cors_origin=cfg.cors_origin_v1)
-        if warmup_sizes:
-            threading.Thread(target=app.warmup, daemon=True).start()
+        models = ModelManager(args.device, checkpoint_dir=args.checkpoint_dir)
+        if args.generation == "v1":
+            from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
+
+            app = create_v1_app(
+                output_dir=args.output_dir,
+                models=models,
+                honor_fov=args.honor_fov,
+                mesh_method=args.mesh_method,
+                warmup_sizes=warmup_sizes,
+                batch_window_ms=cfg.batch_window_ms,
+                max_batch=cfg.max_batch,
+                durable_jobs=cfg.durable_jobs,
+                max_jobs=cfg.max_jobs,
+                defaults=cfg.defaults,
+                max_file_size=cfg.max_file_size,
+                max_preview_points=cfg.max_preview_points,
+                mesh_preview_tris=cfg.mesh_preview_tris,
+                jpeg_device_decode=args.jpeg_device_decode,
+                lazy_export=not args.eager_export,
+                lazy_export_max_bytes=cfg.lazy_export_max_bytes,
+            )
+            server = HttpServer(app.router, args.host, args.port, cors_origin=cfg.cors_origin_v1)
+            if warmup_sizes:
+                threading.Thread(target=app.warmup, daemon=True).start()
+        else:
+            if args.jpeg_device_decode:
+                # v2's preprocess (matte, foreground crop, 512² resize)
+                # needs host pixels, so the hybrid ingest cannot apply.
+                logging.getLogger(__name__).warning(
+                    "--jpeg-device-decode applies to --generation v1 only; ignored for v2"
+                )
+            from image_to_pointcloud_tpu_torch.serve.app_v2 import create_v2_app
+
+            app = create_v2_app(
+                output_dir=args.output_dir,
+                models=models,
+                durable_jobs=cfg.durable_jobs,
+                max_jobs=cfg.max_jobs,
+                v2_defaults=cfg.v2,
+            )
+            server = HttpServer(app.router, args.host, args.port, cors_origin=cfg.cors_origin_v2)
         if args.ui:
             ui_dir = Path(__file__).resolve().parents[2] / "frontend"
             app.router.mount_static("/ui", ui_dir)
         await server.start()
-        logging.info("Serving v1 API on %s:%d (%s)", args.host, server.bound_port, args.device)
+        logging.info("Serving %s API on %s:%d (%s)", args.generation, args.host,
+                     server.bound_port, args.device)
+        if args.generation == "v2":
+            # Bound before the model loads: /health answers and /process
+            # 503s while this awaits.
+            await app.startup()
 
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()

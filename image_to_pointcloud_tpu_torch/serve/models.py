@@ -4,10 +4,13 @@ Counterpart of ``image_to_pointcloud_tpu/serve/models.py``. Models run in
 bf16 on CUDA and f32 on the CPU, as the JAX server runs bf16 on an
 accelerator and f32 on the CPU. Every preset of every family is served
 (:func:`~image_to_pointcloud_tpu_torch.models.depth_anything.build_model`).
-Weights come from an HF-layout safetensors checkpoint under
-``checkpoint_dir`` (or ``IPC_TPU_CHECKPOINT_DIR``), as
-``<dir>/<name>/model.safetensors`` or ``<dir>/<name>.safetensors``,
-converted on load; otherwise from a deterministic random init with a
+Weights come from ``checkpoint_dir`` (or ``IPC_TPU_CHECKPOINT_DIR``): the
+port's own checkpoint ``<dir>/<name>/torch/checkpoint.pt`` (written by the
+CLI's ``train`` or ``convert-ckpt``, ``train/checkpoint.py``) first, as the
+JAX server prefers its ``<dir>/<name>/orbax``; else an HF-layout
+safetensors checkpoint, ``<dir>/<name>/model.safetensors`` or
+``<dir>/<name>.safetensors``, converted on load; otherwise from a
+deterministic random init with a
 seeded ``torch.Generator`` (made on the CPU, so every device gets the same
 numbers), recorded in :attr:`ModelManager.random_weights`.
 ``triposr``/``instantmesh`` are the reference's capability stubs and have
@@ -16,9 +19,9 @@ no pipeline.
 ``int8=True`` (or ``IPC_TPU_INT8=1``) serves the int8 W8A8 encoder
 (``models/quantize.py``): the f32 weights are quantized before the model
 moves to its device and dtype, as the JAX package quantizes its f32
-params. Not ported, and refused with an error rather than served as
-something else: orbax checkpoints (``<dir>/<name>/orbax``, written by the
-JAX package's ``train/``).
+params. Refused with an error rather than served as something else:
+orbax checkpoints (``<dir>/<name>/orbax``, written by the JAX package's
+``train/``), which PyTorch cannot read.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch import nn
 
 from image_to_pointcloud_tpu_torch.models.convert import convert_checkpoint, load_safetensors
 from image_to_pointcloud_tpu_torch.models.depth_anything import (
@@ -39,6 +43,7 @@ from image_to_pointcloud_tpu_torch.models.depth_anything import (
 )
 from image_to_pointcloud_tpu_torch.models.quantize import quantize_encoder_params
 from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
+from image_to_pointcloud_tpu_torch.train.checkpoint import CHECKPOINT_FILE, restore_params
 
 __all__ = ["CHECKPOINT_ENV", "DUMMY_MODELS", "ModelManager"]
 
@@ -93,26 +98,32 @@ class ModelManager:
         if not self.checkpoint_dir:
             return None
         root = Path(self.checkpoint_dir)
+        if (root / name / "torch" / CHECKPOINT_FILE).exists():
+            return root / name / "torch"
         if (root / name / "orbax").exists():
             raise RuntimeError(
                 f"{root / name / 'orbax'} is an orbax checkpoint, which the "
-                "PyTorch package does not read yet (train/ is not ported); "
-                "provide model.safetensors instead"
+                "PyTorch package cannot read; convert the HF weights with "
+                "`python -m image_to_pointcloud_tpu_torch convert-ckpt`, or "
+                "provide model.safetensors"
             )
         for cand in (root / name / "model.safetensors", root / f"{name}.safetensors"):
             if cand.exists():
                 return cand
         return None
 
-    def _build(self, name: str) -> DepthPipeline:
-        if name in DUMMY_MODELS:
-            raise ValueError(f"{name} is a dummy model with no pipeline")
-        cfg = preset(name)  # raises ValueError for unsupported names
+    def load_model(self, name: str, cfg=None) -> nn.Module:
+        """The f32 model of preset ``name`` on the CPU, with its
+        checkpoint's weights or the seeded random init (recorded in
+        :attr:`random_weights`)."""
+        cfg = preset(name) if cfg is None else cfg  # raises ValueError for unsupported names
         model = build_model(cfg)
         ckpt = self._checkpoint(name)
         t0 = time.perf_counter()
         if ckpt is not None:
-            model.load_state_dict(convert_checkpoint(cfg, load_safetensors(str(ckpt))), strict=True)
+            sd = (restore_params(ckpt) if ckpt.name == "torch"
+                  else convert_checkpoint(cfg, load_safetensors(str(ckpt))))
+            model.load_state_dict(sd, strict=True)
             logger.info("Loaded %s weights from %s in %.1f s", name, ckpt, time.perf_counter() - t0)
         else:
             init_weights(model, torch.Generator().manual_seed(_SEED))
@@ -121,6 +132,13 @@ class ModelManager:
                 "random init took %.1f s", name, CHECKPOINT_ENV, time.perf_counter() - t0,
             )
         self.random_weights[name] = ckpt is None
+        return model
+
+    def _build(self, name: str) -> DepthPipeline:
+        if name in DUMMY_MODELS:
+            raise ValueError(f"{name} is a dummy model with no pipeline")
+        cfg = preset(name)
+        model = self.load_model(name, cfg)
         if self.int8:
             # Quantized from the f32 weights, before the cast to the
             # compute dtype; the scales and biases stay f32.

@@ -11,8 +11,13 @@ package's, on the CPU.
   1e-4 (the CPU runs the f32 transfer, no codec), colours within half a
   level (voxel means: 1e-3).
 * ``--device`` and ``--int8`` reach the model manager (a tiny preset);
-  ``train`` and ``convert-ckpt`` refuse, as do ``serve --mesh`` and a
-  ``--device cuda`` run without a card.
+  ``serve --mesh`` and ``train --mesh`` refuse (``parallel/`` is not
+  ported), as does a ``--device cuda`` run without a card.
+* ``train`` (tiny metric preset, synthetic and ``.npz`` data) ends in a
+  checkpoint that ``ModelManager("cpu")`` serves bit for bit; a relative
+  preset is refused. ``convert-ckpt`` writes the converted HF checkpoint
+  (the golden Depth-Anything fixture's state dict) bit for bit, and
+  refuses a checkpoint of another shape before writing anything.
 """
 
 from __future__ import annotations
@@ -183,11 +188,104 @@ def test_device_and_int8_reach_the_manager(tmp_path, monkeypatch):
             tcli.main(["convert", img, "-o", str(tmp_path / "x.ply"), "--model", "tiny-da"])
 
 
-@pytest.mark.parametrize("argv", [["train", "--steps", "2"], ["convert-ckpt", "model.safetensors"],
-                                  ["serve", "--mesh", "data=2"]])
+@pytest.mark.parametrize("argv", [["serve", "--mesh", "data=2"],
+                                  ["train", "--steps", "2", "--mesh", "data=2"]])
 def test_unported_commands_refuse(argv, capsys):
+    """The multi-device mesh is refused until ``parallel/`` is ported, in
+    ``serve`` and in ``train`` alike."""
     with pytest.raises(SystemExit) as exc:
         tcli.main(argv)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert ("not ported" in err) and ("train/" in err or "--mesh" in err)
+    assert "not ported" in err and "--mesh" in err
+
+
+def _tiny_metric_cfg():
+    from test_torch_checkpoint import _tiny_cfg
+
+    cfg = _tiny_cfg("depth_anything")
+    return dataclasses.replace(
+        cfg, neck=dataclasses.replace(cfg.neck, metric_depth=True, max_depth=2.0))
+
+
+@pytest.mark.parametrize("data", ["synthetic", "npz"])
+def test_train_checkpoint_is_served(tmp_path, monkeypatch, capsys, data):
+    from image_to_pointcloud_tpu_torch.models import depth_anything as tda
+    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
+    from image_to_pointcloud_tpu_torch.train.checkpoint import restore_checkpoint
+
+    monkeypatch.setitem(tda.PRESETS, "tiny-metric", _tiny_metric_cfg())
+    out = tmp_path / "ckpts" / "tiny-metric" / "torch"
+    argv = ["train", "--model", "tiny-metric", "--steps", "2", "--batch-size", "2",
+            "--image-size", "56", "--device", "cpu", "--eval-every", "1", "-o", str(out)]
+    if data == "npz":
+        r = np.random.default_rng(0)
+        np.savez(tmp_path / "d.npz", images=r.integers(0, 256, (5, 56, 56, 3), dtype=np.uint8),
+                 depths=(r.random((5, 56, 56)) + 0.5).astype(np.float32))
+        argv += ["--data", str(tmp_path / "d.npz")]
+    assert tcli.main(argv) == 0
+    text = capsys.readouterr().out
+    assert "step     1  loss " in text and "step     2  loss " in text
+    assert text.count("  eval: {'abs_rel'") == 2
+    ck = restore_checkpoint(out)
+    assert ck["step"] == 2 and "opt_state" not in ck
+
+    mm = ModelManager("cpu", checkpoint_dir=str(tmp_path / "ckpts"))
+    pipe = mm.get("tiny-metric")
+    assert mm.random_weights["tiny-metric"] is False
+    served = pipe.model.state_dict()
+    assert set(served) == set(ck["params"])
+    assert all(torch.equal(served[k], v) for k, v in ck["params"].items())
+    init = ModelManager("cpu").load_model("tiny-metric").state_dict()
+    assert not all(torch.equal(init[k], v) for k, v in ck["params"].items())  # it trained
+    res = pipe.run(np.random.default_rng(1).integers(0, 256, (40, 48, 3), dtype=np.uint8))
+    assert len(res.points) > 0 and np.isfinite(res.points).all()
+
+
+@pytest.mark.parametrize("family", ["depth_anything", "dpt_classic"])
+def test_train_refuses_relative_presets(monkeypatch, family):
+    """A relative Depth-Anything head and classic DPT (MiDaS 3.0) are
+    refused before any weights load, as in the JAX CLI."""
+    from test_torch_checkpoint import _tiny_cfg
+
+    from image_to_pointcloud_tpu_torch.models import depth_anything as tda
+
+    monkeypatch.setitem(tda.PRESETS, "tiny-rel", _tiny_cfg(family))
+    with pytest.raises(SystemExit, match="relative-depth preset"):
+        tcli.main(["train", "--model", "tiny-rel", "--steps", "1", "--device", "cpu"])
+
+
+def test_convert_ckpt_writes_the_served_checkpoint(tmp_path, monkeypatch, capsys):
+    from safetensors.torch import save_file
+    from test_torch_checkpoint import _golden_sd, _tiny_cfg
+
+    from image_to_pointcloud_tpu_torch.models import depth_anything as tda
+    from image_to_pointcloud_tpu_torch.models.convert import convert_checkpoint
+    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
+    from image_to_pointcloud_tpu_torch.train.checkpoint import restore_params
+
+    cfg = _tiny_cfg("depth_anything")
+    monkeypatch.setitem(tda.PRESETS, "tiny-da", cfg)
+    # The same layout at another width: every tensor present, shapes off.
+    monkeypatch.setitem(tda.PRESETS, "tiny-da-wide", dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, hidden_size=48)))
+    sd = _golden_sd("depth_anything")
+    src = tmp_path / "hf" / "model.safetensors"
+    src.parent.mkdir()
+    save_file({k: v.contiguous() for k, v in sd.items()}, str(src))
+
+    root = tmp_path / "ckpts"
+    assert tcli.main(["convert-ckpt", str(src.parent), "--model", "tiny-da", "-o", str(root)]) == 0
+    assert "tiny-da/torch" in capsys.readouterr().out
+    got = restore_params(root / "tiny-da" / "torch")
+    ref = convert_checkpoint(cfg, sd)
+    assert set(got) == set(ref) and all(torch.equal(got[k], v) for k, v in ref.items())
+    mm = ModelManager("cpu", checkpoint_dir=str(root))
+    mm.get("tiny-da")
+    assert mm.random_weights["tiny-da"] is False
+
+    with pytest.raises(SystemExit, match="shape mismatch for tiny-da-wide"):
+        tcli.main(["convert-ckpt", str(src), "--model", "tiny-da-wide", "-o", str(root)])
+    assert not (root / "tiny-da-wide").exists()
+    with pytest.raises(SystemExit, match="no such checkpoint"):
+        tcli.main(["convert-ckpt", str(tmp_path / "nope.safetensors"), "-o", str(root)])

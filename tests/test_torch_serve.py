@@ -328,7 +328,8 @@ def test_contract_routes(base):
 
 def test_port_imports_no_jax():
     """Every module of the port, the server and CLI entry points, the int8
-    encoder, the advanced pipelines and ``parallel/`` included, imports
+    encoder, the advanced pipelines, ``parallel/``, the v2 server (with
+    its processor, matte and SegFormer) and ``train/`` included, imports
     without JAX, Flax, transformers or safetensors (none of them is on the
     card machine), and without any module of the JAX package. A
     subprocess, because this test process has JAX loaded
@@ -338,7 +339,10 @@ def test_port_imports_no_jax():
         "import image_to_pointcloud_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in ('serve.__main__', '__main__', 'cli', 'models.quantize', 'ops.voxel',\n"
-        "          'parallel.tiling', 'pipeline.advanced', 'io.glb', 'io.obj', 'io.pcd'):\n"
+        "          'parallel.tiling', 'pipeline.advanced', 'io.glb', 'io.obj', 'io.pcd',\n"
+        "          'serve.app_v2', 'serve.processor3d', 'serve.matting', 'models.segformer',\n"
+        "          'train.losses', 'train.eval', 'train.data', 'train.checkpoint',\n"
+        "          'train.trainer'):\n"
         "    assert 'image_to_pointcloud_tpu_torch.' + m in names, (m, names)\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
