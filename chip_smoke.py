@@ -101,7 +101,31 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     launches); one tiny trainer step card vs CPU, TF32 off; ``convert-ckpt``
     on an HF-layout safetensors written from a random state_dict, back bit
     for bit.
-19. ``/profile/start`` and ``/profile/stop`` around one ``dpt-large``
+19. ``parallel/`` on the one card, every mesh slot ``cuda:0`` (so it
+    measures correctness and the host's cost per slot, not a multi-GPU
+    speed-up), each path against the port's unsharded card result: K1
+    at the TP slots' shapes (1, 3, 1370, 64) and (1, 8, 577, 64) and the
+    full-head ones, held against the plain attention and timed; TP (``data=1, model=2``) through the
+    served ``DepthPipeline`` for DA-V2-Small and ``dpt-large`` at full
+    width (raw output within ``FULL_WIDTH_TOL``, the normalized depth
+    within ``MESH_NORM_TOL``, K1 exactly 24 and 48 a request); int8 TP (a
+    row-parallel ``QuantLinear`` at DA-V2's fc2 and the int8 DA-V2
+    encoder at ``model=2``, bit for bit); DP (``data=2``, a batch of 1 and
+    of 3, padded, against the unmeshed pipeline on each slot's rows:
+    equal kept counts, points within 2e-4, K2 and K3 once per data slot);
+    GPipe (``pipe=4``, M=4, batch 4: DA-V2 and ``dpt-large`` at full
+    width, a 4-block ZoeDepth tiny); sequence-sharded and ring attention
+    at (1, 6, 1370, 64) bf16, ``seq=2``, against the plain attention in
+    f32; the meshed trainer (``depth-anything-v2-metric-small``, 518²,
+    batch 2, f32, remat, ``data=2, model=2``, 3 steps at lr 5e-6, a batch
+    each) against the one-device trainer: the losses, which must move,
+    step 1's parameters and each tensor's three-step update; the server: ``serve --mesh data=1,model=1`` in a
+    child process (a non-flat PLY), ``serve --mesh data=2`` refused with
+    the slot-count error, and a ``ModelManager`` on (``data=2,
+    model=2``) behind the v1 app, three PNG requests of exactly 48 K1, 2
+    K2 and 2 K3. Host walls of a TP, a DP and a GPipe request beside the
+    unmeshed ones.
+20. ``/profile/start`` and ``/profile/stop`` around one ``dpt-large``
     request: the Chrome trace must exist and name the CUDA kernels. Last,
     so that no profiler session precedes the timings of phase 15.
 
@@ -1687,6 +1711,483 @@ def phase_train(out_dir: str, models) -> dict:
     return {"served": served, "step_ms": [t * 1e3 for t in times], "peak_gib": peak}
 
 
+# ---------- the mesh phase: parallel/ on one card, every slot cuda:0 ----------
+
+# The depth normalization, TP mesh against the unsharded forward on the
+# card (bf16), max abs over the normalized [0, 1] map: about twice the
+# largest gap measured (0.030 DA-V2, 0.025 dpt-large on an H100 80GB
+# HBM3 at 700 W), as FULL_WIDTH_TOL is set; each row-parallel partial is
+# rounded to bf16 once more than the unsharded product.
+MESH_NORM_TOL = 0.06
+# Sequence and ring attention in bf16 against the plain attention in f32:
+# K1's bound (the probabilities rounded to bf16 before P·V).
+SEQ_ATTN_TOL = K1_TOL[torch.bfloat16]
+# The meshed trainer's update over three steps at lr 5e-6 against the
+# one device's, relative L2 over every parameter: about twice the gap
+# measured (8.94e-3 on an H100 80GB HBM3 at 700 W). A trainer that drops
+# one data slot's gradient, or resets Adam's moments, fails it by far.
+MESH_TRAIN_UPDATE_TOL = 0.02
+
+
+def _slots(n: int) -> list:
+    return [torch.device("cuda", 0)] * n
+
+
+def _counts() -> dict[str, int]:
+    from image_to_pointcloud_tpu_torch import cuda
+
+    return {k.name: k.launches for k in cuda.KERNELS}
+
+
+def _reset() -> None:
+    from image_to_pointcloud_tpu_torch import cuda
+
+    for k in cuda.KERNELS:
+        k.reset()
+
+
+def _raw_run(pipe, frames: list, depth_scale: float = 15.0):
+    """``pipe.run_batch(frames)`` with each data slot's raw model output
+    kept (f32): (raw depth of the whole batch, padding rows included; the
+    results)."""
+    caps = []
+    slots = pipe._slots
+
+    def keep(fwd):
+        def run(x):
+            out = fwd(x)
+            caps.append(out.float())
+            return out
+        return run
+
+    pipe._slots = [(dev, keep(fwd)) for dev, fwd in slots]
+    try:
+        res = pipe.run_batch(np.stack(frames), depth_scales=depth_scale)
+    finally:
+        pipe._slots = slots
+    return torch.cat([c.to(caps[0].device) for c in caps]), res
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _mesh_tp(models, name: str, k1_blocks: int) -> dict:
+    """One 518² frame through the served DepthPipeline on (data=1,
+    model=2) against the unsharded one, same weights: the raw output
+    within FULL_WIDTH_TOL max-normalized, the normalized depth's gap,
+    exact launches (K1: blocks × 2 slots), host wall of a request each."""
+    from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth
+    from image_to_pointcloud_tpu_torch.parallel.sharding import make_mesh
+    from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
+
+    plain = models.get(name)
+    tp = DepthPipeline(plain.model, model_target=plain.model_target,
+                       mesh=make_mesh(data=1, model=2, devices=_slots(2)))
+    frame = _frame(518, 518, 5)
+    raw_plain, res_plain = _raw_run(plain, [frame])
+    _reset()
+    raw_tp, res_tp = _raw_run(tp, [frame])
+    counts = _counts()
+    err = _max_norm_err(raw_tp, raw_plain)
+    gap = float((normalize_depth(raw_tp[0]) - normalize_depth(raw_plain[0])).abs().max())
+    xyz = res_tp[0].points
+    ms_plain = _host_ms(lambda: plain.run(frame))
+    ms_tp = _host_ms(lambda: tp.run(frame))
+    heads = tp.cfg.backbone.num_heads // 2
+    log(f"mesh TP {name} (data=1, model=2, {heads} heads a slot): raw output max-normalized "
+        f"error vs unsharded {err:.5f} (tol {FULL_WIDTH_TOL:g}); normalized depth max gap "
+        f"{gap:.5f} (tol {MESH_NORM_TOL:g}); points {len(xyz)} (unsharded "
+        f"{len(res_plain[0].points)}), {len(np.unique(xyz[:, 2]))} distinct z; launches "
+        f"{counts}; host wall a request: TP {ms_tp:.2f} ms, unsharded {ms_plain:.2f} ms")
+    expected = {"flash_attention": 2 * k1_blocks, "grid_knn": 1, "unproject": 1}
+    if not (err <= FULL_WIDTH_TOL and gap <= MESH_NORM_TOL and counts == expected
+            and len(np.unique(xyz[:, 2])) > 1):
+        raise AssertionError(f"the TP mesh path of {name} failed (expected launches {expected})")
+    return {"err": err, "gap": gap, "launches": counts, "ms": ms_tp, "plain_ms": ms_plain}
+
+
+def _mesh_k1_tp_times() -> dict:
+    """K1 at the TP slots' shapes (the heads of one slot at model=2)
+    beside the full-head ones: each held against the plain attention in
+    f32 at K1's bf16 tolerance, then its device time."""
+    from image_to_pointcloud_tpu_torch.models.attention import attention_plain, flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out, errs = {}, {}
+    for shape in [(1, 6, 1370, 64), (1, 3, 1370, 64), (1, 16, 577, 64), (1, 8, 577, 64)]:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
+        o = flash_attention(q, k, v)
+        ref = attention_plain(q.float(), k.float(), v.float(), 1.0 / 8.0)
+        errs[str(shape)] = float((o.float() - ref).abs().max())
+        out[str(shape)] = device_time_ms(lambda: flash_attention(q, k, v))
+    log(f"mesh K1 at full-head and TP-slot shapes, bf16: max abs error vs plain f32 {errs} "
+        f"(tol {K1_TOL[torch.bfloat16]:g}); device time (ms) {out}")
+    bad = [k for k, e in errs.items() if not e <= K1_TOL[torch.bfloat16]]
+    if bad:
+        raise AssertionError(f"K1 disagrees with its plain version at the TP shapes {bad}")
+    return {"ms": out, "max_abs_err": errs}
+
+
+def _mesh_int8(int8_models) -> None:
+    """One row-parallel QuantLinear (DA-V2's fc2, 1536 → 384, 1370 tokens)
+    over two slots, and the int8 DA-V2 encoder at model=2, each against
+    the unsharded int8 on the card, bit for bit."""
+    from image_to_pointcloud_tpu_torch.models.quantize import QuantLinear, quantize_dense_params
+    from image_to_pointcloud_tpu_torch.parallel.sharding import (
+        MeshedModel,
+        make_mesh,
+        row_parallel,
+        shard_params,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    full = QuantLinear(1536, 384)
+    full.load_state_dict(quantize_dense_params(torch.randn(384, 1536, generator=gen) * 0.03,
+                                               torch.randn(384, generator=gen) * 0.1))
+    full = full.cuda()
+    x = torch.randn(1, 1370, 1536, generator=gen).cuda().bfloat16()
+    mesh = make_mesh(data=1, model=2, devices=_slots(2))
+    placed = shard_params({f"blocks.0.mlp.fc2.{k}": v for k, v in full.state_dict().items()}, mesh)
+    halves = []
+    for m in range(2):
+        lay = QuantLinear(768, 384).cuda()
+        lay.load_state_dict({k.rsplit(".", 1)[1]: s.slot(model=m) for k, s in placed.items()})
+        halves.append(lay)
+    with torch.inference_mode():
+        same_lin = torch.equal(row_parallel(halves, list(x.chunk(2, dim=-1))), full(x))
+        model = int8_models.get("depth-anything-v2").model
+        px = torch.randn(1, 518, 518, 3, generator=gen).cuda()
+        same_enc = torch.equal(MeshedModel(model, mesh)(px), model(px))
+    log(f"mesh int8 TP: row-parallel QuantLinear (1, 1370, 1536) -> 384 over 2 slots bit for bit "
+        f"{same_lin}; int8 DA-V2-Small encoder at model=2 bit for bit {same_enc}")
+    if not (same_lin and same_enc):
+        raise AssertionError("the int8 TP path differs from the unsharded int8 on the card")
+
+
+def _mesh_dp(models) -> dict:
+    """(data=2): a batch of 1 (padded) and of 3 (padded to 4), each data
+    slot's rows held against the unmeshed pipeline on the same rows (the
+    batch's shape sets cuBLAS's rounding): equal kept counts, points within
+    2e-4. K2 and K3 run once per data slot."""
+    from image_to_pointcloud_tpu_torch.parallel.sharding import make_mesh
+    from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
+
+    plain = models.get("depth-anything-v2")
+    dp = DepthPipeline(plain.model, model_target=plain.model_target,
+                       mesh=make_mesh(data=2, devices=_slots(2)))
+    frames = [_frame(518, 518, 20 + i) for i in range(3)]
+    worst, out = 0.0, {}
+    for n, groups in [(1, [[0]]), (3, [[0, 1], [2, 2]])]:
+        _reset()
+        got = dp.run_batch(np.stack(frames[:n]), depth_scales=15.0)
+        counts = _counts()
+        ref = [r for g in groups for r in plain.run_batch(np.stack([frames[i] for i in g]),
+                                                          depth_scales=15.0)][:n]
+        for a, b in zip(ref, got):
+            if a.kept_point_count != b.kept_point_count:
+                raise AssertionError(f"DP kept {b.kept_point_count}, unmeshed {a.kept_point_count}")
+            worst = max(worst, float(np.abs(a.points - b.points).max()))
+        out[n] = counts
+        log(f"mesh DP (data=2) batch {n}: {len(got)} results, launches {counts}")
+        if counts != {"flash_attention": 24, "grid_knn": 2, "unproject": 2}:
+            raise AssertionError(f"the DP path launched {counts}")
+    ms_dp = _host_ms(lambda: dp.run(frames[0]))
+    ms_plain = _host_ms(lambda: plain.run(frames[0]))
+    log(f"mesh DP: worst point difference {worst:.3e} (tol 2e-4); host wall of a lone request "
+        f"DP=2 {ms_dp:.2f} ms, unmeshed {ms_plain:.2f} ms")
+    if worst > 2e-4:
+        raise AssertionError("the DP path's points differ from the unmeshed ones")
+    return {"launches": out, "ms": ms_dp, "plain_ms": ms_plain, "worst": worst}
+
+
+def _mesh_gpipe(models) -> dict:
+    """pipe=4, M=4, batch 4 through the served DepthPipeline (DA-V2,
+    dpt-large at full width) against the unmeshed forward on the same
+    batch: raw output within FULL_WIDTH_TOL max-normalized, K1 a request;
+    ZoeDepth at a tiny width, raw output to 1e-3 (bf16)."""
+    from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, init_weights
+    from image_to_pointcloud_tpu_torch.parallel.pipeline_par import PipelinedModel, make_pipe_mesh
+    from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
+
+    mesh = make_pipe_mesh(4, data=1, devices=_slots(4))
+    out = {}
+    for name, k1 in (("depth-anything-v2", 12), ("dpt-large", 24)):
+        plain = models.get(name)
+        pp = DepthPipeline(plain.model, model_target=plain.model_target, mesh=mesh,
+                           pipe_microbatches=4)
+        frames = [_frame(518, 518, 30 + i) for i in range(4)]
+        raw_plain, _ = _raw_run(plain, frames)
+        _reset()
+        t0 = time.perf_counter()
+        raw_pp, res = _raw_run(pp, frames)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        err = _max_norm_err(raw_pp, raw_plain)
+        per_request = {k: c / 4 for k, c in counts.items()}
+        log(f"mesh GPipe {name} (pipe=4, M=4, batch 4): raw output max-normalized error vs "
+            f"unmeshed {err:.5f} (tol {FULL_WIDTH_TOL:g}); launches {counts} ({per_request} a "
+            f"request); batch wall {wall:.1f} ms; {len(np.unique(res[0].points[:, 2]))} distinct z")
+        if err > FULL_WIDTH_TOL or counts["flash_attention"] != 4 * k1 or counts["unproject"] != 1:
+            raise AssertionError(f"the GPipe path of {name} failed")
+        out[name] = {"err": err, "launches": counts, "batch_ms": wall}
+    import dataclasses
+
+    zoe = _tiny_configs()["ZoeDepth"][0]  # 4 blocks, one tap a stage
+    zoe = dataclasses.replace(zoe, backbone=dataclasses.replace(
+        zoe.backbone, num_layers=4, out_layers=(1, 2, 3, 4)))
+    model = init_weights(build_model(zoe), torch.Generator().manual_seed(0)).cuda().bfloat16()
+    x = torch.randn(4, 64, 64, 3, generator=torch.Generator().manual_seed(4)).cuda()
+    with torch.inference_mode():
+        err = _max_norm_err(PipelinedModel(model, mesh, num_microbatches=4)(x), model(x))
+    log(f"mesh GPipe zoedepth (tiny, bf16, pipe=4, M=4): raw output max-normalized error {err:.5f}")
+    if err > 1e-3:
+        raise AssertionError("the GPipe path of zoedepth failed")
+    out["zoedepth tiny"] = {"err": err}
+    return out
+
+
+def _mesh_seq_attention() -> dict:
+    from image_to_pointcloud_tpu_torch.models.attention import attention_plain
+    from image_to_pointcloud_tpu_torch.parallel import context
+    from image_to_pointcloud_tpu_torch.parallel.sharding import make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(1, 6, 1370, 64, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    ref = attention_plain(q.float(), k.float(), v.float(), 1.0 / 8.0)
+    mesh = make_mesh(data=1, seq=2, devices=_slots(2))
+    out = {}
+    for fn in (context.sequence_sharded_attention, context.ring_attention):
+        parts = [list(t.chunk(2, dim=2)) for t in (q, k, v)]
+        got = torch.cat(fn(*parts, mesh), dim=2).float()
+        err = float((got - ref).abs().max())
+        ms = cuda_time_ms(lambda: fn(*parts, mesh), 10)
+        out[fn.__name__] = {"max_abs_err": err, "ms": ms}
+        log(f"mesh {fn.__name__} (1, 6, 1370, 64) bf16 at seq=2: max abs error vs plain f32 "
+            f"{err:.3e} (tol {SEQ_ATTN_TOL:g}), {ms:.3f} ms a call (host-inclusive)")
+        if err > SEQ_ATTN_TOL:
+            raise AssertionError(f"{fn.__name__} disagrees with the plain attention")
+    return out
+
+
+def _mesh_train() -> dict:
+    """``depth-anything-v2-metric-small`` at full width (518², batch 2,
+    f32, remat) on (data=2, model=2), four slots of one card, 3 steps at
+    the fine-tuning rate 5e-6, against the one-device Trainer from the
+    same state, TF32 off. The loss of the one device must move at every
+    step by more than the agreement bound (a model that stops learning
+    would make steps 2 and 3 check nothing); each meshed loss within 1e-4
+    relative of the one device's (phase 18's card-vs-CPU bound). After
+    step 1 every parameter within Adam's first-step rule: 1e-3·lr plus
+    what the gradient difference carries through the step (phase 18's)
+    plus one f32 spacing of the parameter (the two updates round apart;
+    at lr 5e-6 that spacing, 1.2e-7 near 1, exceeds 1e-3·lr). After step 3
+    the update over the three steps, p3 − p0 of every parameter, within
+    MESH_TRAIN_UPDATE_TOL of the one device's in relative L2 norm (later
+    Adam steps divide by the gradient's own running size, so f32 noise on
+    a near-zero gradient flips an element's step: an elementwise rule, or
+    one per small tensor, fails on that; the DP sum and Adam's moments act
+    on every tensor). The keys' biases, whose gradient is zero in exact
+    arithmetic and whose updates are Adam-normalized noise, are left out;
+    each tensor's gap is printed."""
+    from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, init_weights, preset
+    from image_to_pointcloud_tpu_torch.parallel.sharding import make_mesh
+    from image_to_pointcloud_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    lr, eps = 5e-6, 1e-8
+    sd = init_weights(build_model(preset(TRAIN_MODEL)), torch.Generator().manual_seed(0)).state_dict()
+    # A batch of its own for each step, so that Adam's moments (not the
+    # sign of one gradient alone) set the updates of steps 2 and 3.
+    r = np.random.default_rng(7)
+    x = r.normal(0, 1, (3, 2, 518, 518, 3)).astype(np.float32)
+    y = (r.random((3, 2, 518, 518)) + 0.5).astype(np.float32)
+    tcfg = TrainConfig(learning_rate=lr, loss="silog")
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    try:
+        grads = {}
+        for kind in ("one", "mesh"):
+            torch.cuda.reset_peak_memory_stats()
+            mesh = make_mesh(data=2, model=2, devices=_slots(4)) if kind == "mesh" else None
+            tr = Trainer(preset(TRAIN_MODEL), sd, "cuda", tcfg, mesh=mesh)
+            losses, times, params = [], [], []
+            for step in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(tr.train_step(x[step], y[step])))
+                times.append((time.perf_counter() - t0) * 1e3)
+                if step == 0:  # the elementwise rule is Adam's first step's
+                    grads[kind] = _named_grads(tr)
+                if step in (0, 2):
+                    params.append({k: v.detach().clone() for k, v in tr.state_dict().items()})
+            res[kind] = {"losses": losses, "step_ms": times,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "params": params}
+            del tr
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (one1, one3), (mesh1, mesh3) = res["one"]["params"], res["mesh"]["params"]
+    worst1, rel3, noise, sq = 0.0, {}, {}, [0.0, 0.0]
+    for name, p in one1.items():
+        g, rg = grads["mesh"][name], grads["one"][name]
+        m = torch.where(g * rg > 0, torch.minimum(g.abs(), rg.abs()), 0.0)
+        spacing = torch.nextafter(p.abs(), torch.full_like(p, float("inf"))) - p.abs()
+        bound = 1e-3 * lr + lr * (g - rg).abs() * eps / (m + eps) ** 2 + spacing
+        worst1 = max(worst1, float(((mesh1[name] - p).abs() / bound).max()))
+        moved = float((one3[name] - sd[name].to(p.device)).norm())
+        gap = float((mesh3[name] - one3[name]).norm())
+        (noise if name.endswith(".k.bias") else rel3)[name] = gap / moved if moved else gap
+        if not name.endswith(".k.bias"):
+            sq[0], sq[1] = sq[0] + gap**2, sq[1] + moved**2
+    gap3 = (sq[0] / sq[1]) ** 0.5
+    worst3 = max(rel3, key=rel3.get)
+    lm, lo = res["mesh"]["losses"], res["one"]["losses"]
+    moves = [abs(b - a) / abs(a) for a, b in zip(lo, lo[1:])]
+    log(f"mesh trainer {TRAIN_MODEL} 518² batch 2 f32 remat, lr {lr:g}, TF32 off: losses "
+        f"(data=2, model=2) {lm}, one device {lo} (relative moves {moves}); worst parameter "
+        f"error after step 1 {worst1:.3f} of its bound; update p3 - p0 relative L2 gap after "
+        f"step 3: {gap3:.3e} (tol {MESH_TRAIN_UPDATE_TOL:g}); per tensor, worst {worst3} "
+        f"{rel3[worst3]:.3e}, median {statistics.median(rel3.values()):.3e} over "
+        f"{len(rel3)} tensors, keys' biases "
+        f"(left out) up to {max(noise.values(), default=0.0):.3e}; step ms mesh "
+        f"{[round(t, 2) for t in res['mesh']['step_ms']]}, one device "
+        f"{[round(t, 2) for t in res['one']['step_ms']]}; peak GiB mesh "
+        f"{res['mesh']['peak_gib']:.3f}, one device {res['one']['peak_gib']:.3f}")
+    if not all(mv > 1e-4 for mv in moves):
+        raise AssertionError(f"the one-device loss stopped moving: {lo}")
+    if not (all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lm, lo)) and worst1 <= 1
+            and gap3 <= MESH_TRAIN_UPDATE_TOL):
+        raise AssertionError("the meshed trainer disagrees with the one-device trainer")
+    out = {k: {kk: vv for kk, vv in v.items() if kk != "params"} for k, v in res.items()}
+    return {**out, "step1_worst": worst1, "step3_update_gap": gap3,
+            "step3_worst_tensor_gap": rel3[worst3]}
+
+
+def _named_grads(tr) -> dict:
+    """Each trained parameter's gradient, by its one-device name (the
+    shards gathered as the state_dict gathers the parameters)."""
+    saved = [p.detach().clone() for p in tr.params]
+    with torch.no_grad():
+        for p in tr.params:
+            p.copy_(p.grad)
+        out = {k: v.clone() for k, v in tr.state_dict().items()}
+        for p, s in zip(tr.params, saved):
+            p.copy_(s)
+    return out
+
+
+def _mesh_server(out_dir: str) -> dict:
+    """The server on meshes: ``serve --mesh data=1,model=1`` in a child
+    process (one slot, a non-flat PLY) and ``serve --mesh data=2`` refused
+    with the slot-count error; in this process ``ModelManager(mesh=(data=2,
+    model=2) over four cuda:0 slots)`` behind the v1 app, three PNG
+    requests with exact launches (K1 12 blocks x 2 model x 2 data slots,
+    the lone request padded; K2 and K3 once per data slot)."""
+    import os
+    import re
+    import signal
+
+    from image_to_pointcloud_tpu_torch.parallel.sharding import make_mesh
+    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("IPC_TPU_")}
+    refused = subprocess.run(
+        [sys.executable, "-m", "image_to_pointcloud_tpu_torch.serve", "--mesh", "data=2",
+         "--port", "0", "--output-dir", f"{out_dir}/mesh_refused"],
+        capture_output=True, text=True, timeout=120, env=env)
+    ok_refused = refused.returncode == 2 and "more slots than devices (1 given)" in refused.stderr
+    log(f"mesh serve --mesh data=2 on one card: rc {refused.returncode}, "
+        f"{refused.stderr.strip().splitlines()[-1]!r}")
+    child = subprocess.Popen(
+        [sys.executable, "-m", "image_to_pointcloud_tpu_torch.serve", "--mesh", "data=1,model=1",
+         "--port", "0", "--output-dir", f"{out_dir}/mesh_child"],
+        stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        port = None
+        deadline = time.time() + 180
+        while port is None and time.time() < deadline:
+            line = child.stderr.readline()
+            if not line:
+                break
+            m = re.search(r"Serving v1 API on [\d.]+:(\d+) \(cuda, mesh (.*)\)", line)
+            port = int(m.group(1)) if m else None
+        if port is None:
+            raise AssertionError("serve --mesh data=1,model=1 did not start")
+        lat, st, ply = _request(f"http://127.0.0.1:{port}", _png(518, 518, 50))
+        xyz = _check_ply(ply, st["results"]["pointCloud"]["points"])
+        log(f"mesh serve --mesh data=1,model=1 (mesh {m.group(2)}): {lat * 1e3:.1f} ms, "
+            f"{len(xyz)} points, {len(np.unique(xyz[:, 2]))} distinct z")
+    finally:
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=60)
+        child.stderr.close()
+    meshed = ModelManager("cuda", mesh=make_mesh(data=2, model=2, devices=_slots(4)))
+    srv = _Server(out_dir, meshed)
+    try:
+        _request(srv.base, _png(518, 518, 51))  # builds the meshed model
+        per = []
+        for i in range(3):
+            _reset()
+            lat, st, ply = _request(srv.base, _png(518, 518, 52 + i))
+            counts = _counts()
+            xyz = _check_ply(ply, st["results"]["pointCloud"]["points"])
+            per.append(counts)
+            log(f"mesh server (data=2, model=2) request #{i}: {lat * 1e3:.1f} ms, {len(xyz)} "
+                f"points, {len(np.unique(xyz[:, 2]))} distinct z, launches {counts}")
+    finally:
+        srv.stop()
+    expected = {"flash_attention": 48, "grid_knn": 2, "unproject": 2}
+    if not (ok_refused and rc == 0 and all(c == expected for c in per)):
+        raise AssertionError(f"the meshed server failed (child rc {rc}, expected {expected})")
+    return {"requests": per}
+
+
+def phase_mesh(out_dir: str, models, int8_models) -> tuple[dict[str, int], dict]:
+    """``parallel/`` on the one card, every slot ``cuda:0``: TP, int8 TP,
+    DP, GPipe, sequence and ring attention, the meshed trainer and the
+    meshed server, each against the port's unsharded card result. Slots
+    sharing a card measure correctness and per-slot host cost, not a
+    multi-GPU speed-up. Returns the launches of the meshed serving paths
+    (each read on its own) and the phase's numbers."""
+    totals: dict[str, int] = {}
+    per_request: dict[str, dict[str, float]] = {}
+
+    def add(path, counts, n):
+        for k, c in counts.items():
+            totals[k] = totals.get(k, 0) + c
+            per_request.setdefault(k, {})[path] = c / n
+
+    out = {"k1_tp": _mesh_k1_tp_times()}
+    for name, blocks in (("depth-anything-v2", 12), ("dpt-large", 24)):
+        out[f"tp {name}"] = r = _mesh_tp(models, name, blocks)
+        add(f"{name} TP model=2", r["launches"], 1)
+    _mesh_int8(int8_models)
+    out["dp"] = dp = _mesh_dp(models)
+    add("depth-anything-v2 DP data=2 batch 1", dp["launches"][1], 1)
+    add("depth-anything-v2 DP data=2 batch 3", dp["launches"][3], 3)
+    out["gpipe"] = gp = _mesh_gpipe(models)
+    for name in ("depth-anything-v2", "dpt-large"):
+        add(f"{name} GPipe pipe=4", gp[name]["launches"], 4)
+    out["seq"] = _mesh_seq_attention()
+    out["train"] = _mesh_train()
+    out["server"] = srv = _mesh_server(out_dir)
+    for c in srv["requests"]:
+        add("depth-anything-v2 server data=2 model=2", c, 1)
+    log(f"mesh phase numbers: {json.dumps(out, default=str)}")
+    return totals, per_request
+
+
 def timed(phase, *args):
     t0 = time.perf_counter()
     out = phase(*args)
@@ -1728,7 +2229,8 @@ def main() -> int:
     models = ModelManager("cuda")
     timed(phase_full_width, models, ModelManager("cpu"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-        counts, per_request = timed(phase_server, out_dir, models, ModelManager("cuda", int8=True))
+        int8_models = ModelManager("cuda", int8=True)
+        counts, per_request = timed(phase_server, out_dir, models, int8_models)
         cli_counts, cli_runs = timed(phase_cli, out_dir)
         for name, c in cli_counts.items():
             counts[name] += c
@@ -1743,6 +2245,10 @@ def main() -> int:
             for name, c in path_counts.items():
                 counts[name] += c
                 per_request[name][path] = c / n
+        mesh_counts, mesh_runs = timed(phase_mesh, out_dir, models, int8_models)
+        for name, c in mesh_counts.items():
+            counts[name] += c
+            per_request[name].update(mesh_runs[name])
         timed(phase_profile, out_dir, models)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 

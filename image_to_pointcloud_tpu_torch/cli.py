@@ -16,11 +16,12 @@ Counterpart of ``image_to_pointcloud_tpu/cli.py``:
 Models run on the card (``--device cuda``, bf16, the CUDA kernels) unless
 ``--device cpu`` asks for the CPU (f32, the plain versions); ``--int8``
 serves the int8 W8A8 encoder, as ``IPC_TPU_INT8=1`` does. Same-size inputs
-go through one batch. ``train`` fine-tunes a metric preset in f32 on one
-device (``train/``) and writes the port's checkpoint, which the server
-reads from ``<IPC_TPU_CHECKPOINT_DIR>/<model>/torch``; ``convert-ckpt``
-writes the same from HF safetensors. ``--mesh`` (``train`` and ``serve``)
-is refused: ``parallel/`` is not ported yet.
+go through one batch. ``train`` fine-tunes a metric preset in f32 on a
+mesh of device slots (``--mesh data=N,model=M``; by default DP over every
+visible device, ``parallel/``) and writes the port's checkpoint, which the
+server reads from ``<IPC_TPU_CHECKPOINT_DIR>/<model>/torch``;
+``convert-ckpt`` writes the same from HF safetensors. ``serve --mesh`` is
+the server's own flag.
 """
 
 from __future__ import annotations
@@ -259,9 +260,11 @@ def cmd_metric(args) -> int:
 
 
 def cmd_train(args) -> int:
-    """Fine-tune on one device: the trainer, the double-buffered input
-    pipeline and the port's checkpoint (train/); the saved checkpoint plugs
-    into serving via IPC_TPU_CHECKPOINT_DIR/<model>/torch."""
+    """Fine-tune on a mesh of device slots (``--mesh``; default: DP over
+    every visible device of ``--device``'s type): the trainer, the
+    double-buffered input pipeline placing each batch on the data slots,
+    and the port's checkpoint (train/); the saved checkpoint plugs into
+    serving via IPC_TPU_CHECKPOINT_DIR/<model>/torch."""
     import numpy as np
     import torch
 
@@ -290,8 +293,23 @@ def cmd_train(args) -> int:
     # seeded random init, in f32 on the CPU.
     state = ModelManager("cpu", checkpoint_dir=args.checkpoint_dir).load_model(
         args.model, cfg).state_dict()
-    trainer = Trainer(cfg, state, device,
-                      TrainConfig(learning_rate=args.learning_rate, loss=args.loss, remat=True))
+    from image_to_pointcloud_tpu_torch.parallel.sharding import (
+        batch_sharding,
+        make_mesh,
+        visible_devices,
+    )
+    from image_to_pointcloud_tpu_torch.serve.__main__ import parse_mesh
+
+    try:
+        mesh = parse_mesh(args.mesh, device) if args.mesh else make_mesh(
+            devices=visible_devices(device))
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+    if mesh == "auto":
+        mesh = make_mesh(devices=visible_devices(device))
+    trainer = Trainer(cfg, state, cfg=TrainConfig(learning_rate=args.learning_rate,
+                                                  loss=args.loss, remat=True), mesh=mesh)
+    print(f"mesh {mesh.shape} over {sorted({str(d) for d in mesh.devices.flat})}")
 
     hw = (args.image_size, args.image_size)
     if args.data:
@@ -323,14 +341,16 @@ def cmd_train(args) -> int:
         )
 
     t0 = time.perf_counter()
-    for step, (x, y) in enumerate(prefetch_to_device(stream, device=device), 1):
+    sharded = prefetch_to_device(stream, sharding=lambda a: batch_sharding(mesh, a.ndim))
+    for step, (x, y) in enumerate(sharded, 1):
         loss = float(trainer.train_step(x, y))
         if step == 1 or step % 10 == 0 or step == args.steps:
             print(f"step {step:>5d}  loss {loss:.5f}")
         if args.eval_every and step % args.eval_every == 0:
             pred = trainer.predict(ev_imgs)
             m = {k: round(float(v), 4)
-                 for k, v in depth_metrics(pred, torch.as_tensor(ev_deps, device=device)).items()}
+                 for k, v in depth_metrics(pred, torch.as_tensor(ev_deps, device=pred.device)
+                                           ).items()}
             print(f"  eval: {m}")
     print(f"{args.steps} steps in {time.perf_counter() - t0:.1f}s")
 
@@ -451,8 +471,8 @@ def main(argv=None) -> int:
 
     pt = sub.add_parser(
         "train",
-        help="fine-tune a depth model (synthetic or .npz data) on one device and "
-        "save a checkpoint the server can load",
+        help="fine-tune a depth model (synthetic or .npz data) on a mesh of devices "
+        "and save a checkpoint the server can load",
     )
     pt.add_argument("--model", default="depth-anything-v2-metric-small")
     pt.add_argument("--data", default=None,
@@ -466,7 +486,9 @@ def main(argv=None) -> int:
     # (a KeyError at the first step); here argparse refuses it.
     pt.add_argument("--loss", default="silog", choices=["silog", "affine_invariant"])
     pt.add_argument("--mesh", default=None,
-                    help="multi-device mesh: refused until parallel/ is ported")
+                    help="device-slot mesh 'data=N,model=M[,seq=S]' (batch over data, "
+                    "encoder blocks megatron-sharded over model); default: DP over every "
+                    "visible device of --device's type")
     pt.add_argument("--checkpoint-dir", default=None,
                     help="initial weights (the server's checkpoint layout)")
     pt.add_argument("-o", "--output", default="checkpoints/finetuned",
@@ -493,9 +515,6 @@ def main(argv=None) -> int:
     ps.set_defaults(fn=None)
 
     args, rest = parser.parse_known_args(argv)
-    if getattr(args, "mesh", None):
-        parser.error("--mesh is not ported to the PyTorch package yet: parallel/ "
-                     "(see ROADMAP.md)")
     if args.command == "serve":
         from image_to_pointcloud_tpu_torch.serve.__main__ import main as serve_main
 

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from image_to_pointcloud_tpu_torch.models.dinov2 import run_blocks, tp_width
 from image_to_pointcloud_tpu_torch.models.quantize import block_dense
 from image_to_pointcloud_tpu_torch.ops.resize import resize_batched
 
@@ -90,18 +91,20 @@ def _interp_bias_table(
 
 
 class _BeitAttention(nn.Module):
-    def __init__(self, cfg: BeitConfig):
+    def __init__(self, cfg: BeitConfig, tp: int = 1):
         super().__init__()
         d = cfg.hidden_size
-        self.num_heads = cfg.num_heads
+        self.num_heads = tp_width(cfg.num_heads, tp, "heads")
+        dl = tp_width(d, tp, "hidden size")
         self.window = (cfg.window_size, cfg.window_size)
         q = cfg.quantized
-        self.q = block_dense(q, d, d)
-        self.k = block_dense(q, d, d, bias=False)  # BEiT's key has no bias
-        self.v = block_dense(q, d, d)
-        self.proj = block_dense(q, d, d)
+        self.q = block_dense(q, d, dl)
+        self.k = block_dense(q, d, dl, bias=False)  # BEiT's key has no bias
+        self.v = block_dense(q, d, dl)
+        self.proj = block_dense(q, dl, d)
         num_rel = (2 * cfg.window_size - 1) ** 2 + 3
-        self.rel_pos_table = nn.Parameter(torch.zeros(num_rel, cfg.num_heads))
+        # A model slot's table holds its own heads' columns.
+        self.rel_pos_table = nn.Parameter(torch.zeros(num_rel, self.num_heads))
         self._table_cache: tuple | None = None
 
     def _bias(self, grid: tuple[int, int], index: torch.Tensor) -> torch.Tensor:
@@ -123,36 +126,60 @@ class _BeitAttention(nn.Module):
                 self._table_cache = (key, table)
         return table[:, index][None]
 
-    def forward(self, x: torch.Tensor, grid: tuple[int, int], index: torch.Tensor):
-        b, n, d = x.shape
+    def attend(self, x: torch.Tensor, grid: tuple[int, int], index: torch.Tensor):
+        """Biased attention over this module's heads, before ``proj``."""
+        b, n, _ = x.shape
         h = self.num_heads
-        dh = d // h
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        dl = q.shape[-1]
+        dh = dl // h
 
         def split(y):
             return y.reshape(b, n, h, dh).transpose(1, 2)
 
-        q, k, v = split(self.q(x)), split(self.k(x)), split(self.v(x))
+        q, k, v = split(q), split(k), split(v)
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(dh)
         probs = torch.softmax(scores + self._bias(grid, index), dim=-1).to(x.dtype)
         out = torch.matmul(probs.float(), v.float()).to(x.dtype)
-        return self.proj(out.transpose(1, 2).reshape(b, n, d))
+        return out.transpose(1, 2).reshape(b, n, dl)
+
+    def forward(self, x: torch.Tensor, grid: tuple[int, int], index: torch.Tensor):
+        return self.proj(self.attend(x, grid, index))
 
 
 class BeitBlock(nn.Module):
-    def __init__(self, cfg: BeitConfig):
+    """Pre-norm block with LayerScale; ``tp`` as :class:`.dinov2.Block`'s
+    (the relative-position table split on its head dim)."""
+
+    def __init__(self, cfg: BeitConfig, tp: int = 1):
         super().__init__()
         d = cfg.hidden_size
+        hidden = tp_width(cfg.intermediate_size, tp, "MLP width")
         self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.attn = _BeitAttention(cfg)
+        self.attn = _BeitAttention(cfg, tp)
         self.ls1 = nn.Parameter(torch.ones(d))
         self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.fc1 = block_dense(cfg.quantized, d, cfg.intermediate_size)
-        self.fc2 = block_dense(cfg.quantized, cfg.intermediate_size, d)
+        self.fc1 = block_dense(cfg.quantized, d, hidden)
+        self.fc2 = block_dense(cfg.quantized, hidden, d)
         self.ls2 = nn.Parameter(torch.ones(d))
+
+    @property
+    def attn_out(self) -> nn.Module:
+        return self.attn.proj
+
+    @property
+    def mlp_out(self) -> nn.Module:
+        return self.fc2
+
+    def attend(self, h, grid, index):
+        return self.attn.attend(h, grid, index)
+
+    def mlp_hidden(self, h):
+        return F.gelu(self.fc1(h))
 
     def forward(self, x, grid, index):
         x = x + self.attn(self.norm1(x), grid, index) * self.ls1
-        return x + self.fc2(F.gelu(self.fc1(self.norm2(x)))) * self.ls2
+        return x + self.fc2(self.mlp_hidden(self.norm2(x))) * self.ls2
 
 
 class BeitBackbone(nn.Module):
@@ -176,7 +203,8 @@ class BeitBackbone(nn.Module):
             ).to(device)
         return self._index[key]
 
-    def forward(self, pixels: torch.Tensor) -> list[torch.Tensor]:
+    def embed(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) normalized pixels → (B, 1+gh·gw, D) tokens."""
         cfg = self.cfg
         b, hh, ww, _ = pixels.shape
         p = cfg.patch_size
@@ -188,12 +216,18 @@ class BeitBackbone(nn.Module):
         # one rounding to the model dtype.
         x = torch.matmul(x.float(), self.patch_embed.weight.float().T)
         x = (x + self.patch_embed.bias.float()).to(dtype)
-        x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
-        index = self._rel_index(grid, x.device)
-        want = {i - 1 for i in cfg.out_layers}  # 1-indexed stages → blocks
-        taps = []
-        for i, blk in enumerate(self.blocks):
-            x = blk(x, grid, index)
-            if i in want:
-                taps.append(x.float())
-        return taps
+        return torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
+
+    @property
+    def tap_blocks(self) -> tuple[int, ...]:
+        # 1-indexed stages → blocks, each once and in block order, as the
+        # JAX backbone collects them (a set of wanted blocks).
+        return tuple(sorted({i - 1 for i in self.cfg.out_layers}))
+
+    def block_args(self, grid: tuple[int, int], device: torch.device) -> tuple:
+        return grid, self._rel_index(grid, device)
+
+    def forward(self, pixels: torch.Tensor) -> list[torch.Tensor]:
+        p = self.cfg.patch_size
+        grid = (pixels.shape[1] // p, pixels.shape[2] // p)
+        return [t.float() for t in run_blocks(self, self.embed(pixels), grid)]

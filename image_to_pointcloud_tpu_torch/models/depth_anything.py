@@ -130,13 +130,26 @@ def preset(name: str) -> ModelConfig:
 
 class DepthAnything(nn.Module):
     """(B, H, W, 3) normalized pixels → (B, H, W) float32 relative inverse
-    depth (or metric depth)."""
+    depth (or metric depth).
+
+    Every family's model splits its forward the same way, for the meshed
+    runners of ``parallel/``: :meth:`embed`, the backbone's blocks (its
+    ``tap_blocks``, ``block_args``), :meth:`finish`."""
 
     def __init__(self, cfg: DepthAnythingConfig):
         super().__init__()
         self.cfg = cfg
         self.backbone = DinoV2Backbone(cfg.backbone)
         self.neck = DPTNeckHead(cfg.neck)
+
+    def embed(self, pixels: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int]]:
+        """Pixels → (the encoder's input tokens, the patch grid)."""
+        p = self.cfg.backbone.patch_size
+        return self.backbone.embed(pixels), (pixels.shape[1] // p, pixels.shape[2] // p)
+
+    def finish(self, taps: list[torch.Tensor], grid: tuple[int, int]) -> torch.Tensor:
+        """The tap blocks' outputs → depth: everything after the encoder."""
+        return self.neck(self.backbone.finalize(taps, grid)).float()
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         return self.neck(self.backbone(pixels)).float()

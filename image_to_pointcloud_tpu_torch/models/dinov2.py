@@ -24,7 +24,7 @@ from image_to_pointcloud_tpu_torch.models.attention import multi_head_attention
 from image_to_pointcloud_tpu_torch.models.quantize import block_dense
 from image_to_pointcloud_tpu_torch.ops.resize import resample_matrix
 
-__all__ = ["DinoV2Config", "DinoV2Backbone"]
+__all__ = ["Block", "DinoV2Backbone", "DinoV2Config", "residual", "run_blocks", "tp_width"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,38 +46,90 @@ class DinoV2Config:
     remat_blocks: bool = False
 
 
+def tp_width(n: int, tp: int, what: str) -> int:
+    """``n / tp``: one model slot's share of ``n`` heads or features."""
+    if n % tp:
+        raise ValueError(f"{what} {n} does not split over {tp} model slots")
+    return n // tp
+
+
+def residual(x: torch.Tensor, y: torch.Tensor, ls: torch.Tensor | None) -> torch.Tensor:
+    """``x + ls · y`` (LayerScale), or ``x + y`` where the block has none."""
+    return x + (y if ls is None else ls * y)
+
+
 class Mlp(nn.Module):
-    def __init__(self, cfg: DinoV2Config):
+    def __init__(self, cfg: DinoV2Config, tp: int = 1):
         super().__init__()
         d, q = cfg.hidden_size, cfg.quantized
-        self.fc1 = block_dense(q, d, d * cfg.mlp_ratio)
-        self.fc2 = block_dense(q, d * cfg.mlp_ratio, d)
+        hidden = tp_width(d * cfg.mlp_ratio, tp, "MLP width")
+        self.fc1 = block_dense(q, d, hidden)
+        self.fc2 = block_dense(q, hidden, d)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: DinoV2Config):
+    """Pre-norm block with LayerScale. ``tp > 1`` builds one of ``tp``
+    megatron shards (``parallel/sharding.py``): ``num_heads / tp`` heads
+    and ``mlp_width / tp`` MLP features, whose ``proj`` and ``fc2`` give
+    partial sums over the model slots; :meth:`attend` and
+    :meth:`mlp_hidden` are the column-parallel halves between each norm
+    and those row-parallel products."""
+
+    def __init__(self, cfg: DinoV2Config, tp: int = 1):
         super().__init__()
         d = cfg.hidden_size
-        self.num_heads = cfg.num_heads
+        self.num_heads = tp_width(cfg.num_heads, tp, "heads")
+        dl = tp_width(d, tp, "hidden size")
         self.use_flash = cfg.use_flash_attention
         self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.q, self.k, self.v, self.proj = (block_dense(cfg.quantized, d, d) for _ in range(4))
+        self.q, self.k, self.v = (block_dense(cfg.quantized, d, dl) for _ in range(3))
+        self.proj = block_dense(cfg.quantized, dl, d)
         self.ls1 = nn.Parameter(torch.ones(d))
         self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.mlp = Mlp(cfg)
+        self.mlp = Mlp(cfg, tp)
         self.ls2 = nn.Parameter(torch.ones(d))
 
-    def forward(self, x):
-        h = self.norm1(x)
-        h = multi_head_attention(
+    @property
+    def attn_out(self) -> nn.Module:
+        return self.proj
+
+    @property
+    def mlp_out(self) -> nn.Module:
+        return self.mlp.fc2
+
+    def attend(self, h):
+        """Attention of ``norm1``'s output over this block's heads, before
+        ``proj``."""
+        return multi_head_attention(
             self.q(h), self.k(h), self.v(h), num_heads=self.num_heads,
             use_flash=self.use_flash,
         )
-        x = x + self.ls1 * self.proj(h)
-        return x + self.ls2 * self.mlp(self.norm2(x))
+
+    def mlp_hidden(self, h):
+        """The MLP's hidden activations of ``norm2``'s output, before ``fc2``."""
+        return F.gelu(self.mlp.fc1(h))
+
+    def forward(self, x):
+        x = residual(x, self.proj(self.attend(self.norm1(x))), self.ls1)
+        return residual(x, self.mlp.fc2(self.mlp_hidden(self.norm2(x))), self.ls2)
+
+
+def run_blocks(backbone: nn.Module, x: torch.Tensor, grid: tuple[int, int]) -> list[torch.Tensor]:
+    """Every encoder block of ``backbone`` in order (each under
+    ``torch.utils.checkpoint`` when the config's ``remat_blocks`` is on and
+    grad is enabled); the tap blocks' outputs, in tap order."""
+    remat = getattr(backbone.cfg, "remat_blocks", False) and torch.is_grad_enabled()
+    args = backbone.block_args(grid, x.device)
+    want = set(backbone.tap_blocks)
+    taps = {}
+    for i, blk in enumerate(backbone.blocks):
+        x = checkpoint(blk, x, *args, use_reentrant=False) if remat else blk(x, *args)
+        if i in want:
+            taps[i] = x
+    return [taps[i] for i in backbone.tap_blocks]
 
 
 class DinoV2Backbone(nn.Module):
@@ -122,18 +174,23 @@ class DinoV2Backbone(nn.Module):
         x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
         return x + self._pos_embed(ph, pw)
 
-    def forward(self, pixels: torch.Tensor) -> list[torch.Tensor]:
-        cfg = self.cfg
-        b = pixels.shape[0]
-        ph, pw = pixels.shape[1] // cfg.patch_size, pixels.shape[2] // cfg.patch_size
-        x = self.embed(pixels)
-        taps = {}
-        remat = cfg.remat_blocks and torch.is_grad_enabled()
-        for i, blk in enumerate(self.blocks):
-            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
-            if i in cfg.out_layers:
-                taps[i] = x
+    @property
+    def tap_blocks(self) -> tuple[int, ...]:
+        """0-indexed blocks whose outputs feed the neck, in its order."""
+        return tuple(self.cfg.out_layers)
+
+    def block_args(self, grid: tuple[int, int], device: torch.device) -> tuple:
+        return ()
+
+    def finalize(self, taps: list[torch.Tensor], grid: tuple[int, int]) -> list[torch.Tensor]:
+        """Tap token sequences → (B, h, w, D) maps: final LayerNorm, CLS
+        stripped."""
+        ph, pw = grid
         return [
-            self.norm(taps[i])[:, 1:].reshape(b, ph, pw, cfg.hidden_size)
-            for i in cfg.out_layers
+            self.norm(t)[:, 1:].reshape(t.shape[0], ph, pw, self.cfg.hidden_size) for t in taps
         ]
+
+    def forward(self, pixels: torch.Tensor) -> list[torch.Tensor]:
+        p = self.cfg.patch_size
+        grid = (pixels.shape[1] // p, pixels.shape[2] // p)
+        return self.finalize(run_blocks(self, self.embed(pixels), grid), grid)

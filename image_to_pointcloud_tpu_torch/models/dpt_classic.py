@@ -109,7 +109,13 @@ class DPTClassic(nn.Module):
         self.backbone = ViTBackbone(cfg.backbone)
         self.neck = _ClassicNeckHead(cfg)
 
+    def embed(self, pixels: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int]]:
+        p = self.cfg.backbone.patch_size
+        return self.backbone.embed(pixels), (pixels.shape[1] // p, pixels.shape[2] // p)
+
+    def finish(self, taps: list[torch.Tensor], grid: tuple[int, int]) -> torch.Tensor:
+        return self.neck(taps, grid).float()
+
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         p = self.cfg.backbone.patch_size
-        grid = (pixels.shape[1] // p, pixels.shape[2] // p)
-        return self.neck(self.backbone(pixels), grid).float()
+        return self.finish(self.backbone(pixels), (pixels.shape[1] // p, pixels.shape[2] // p))

@@ -39,11 +39,13 @@ from torch import nn
 __all__ = [
     "QUANT_TARGETS",
     "QuantLinear",
+    "activation_scale",
     "block_dense",
     "int8_matmul",
     "quantize_activations",
     "quantize_dense_params",
     "quantize_encoder_params",
+    "quantize_with_scale",
 ]
 
 # Linear submodules of each encoder block that carry the matmul FLOPs, by
@@ -87,9 +89,17 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-token int8: (int8 codes, f32 (..., 1) scales);
     round half to even, then clip to ±127."""
-    xf = x.float()
-    a_scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) * _INV_127
-    return torch.round(xf / a_scale).clamp(-127, 127).to(torch.int8), a_scale
+    a_scale = activation_scale(x.float().abs().amax(dim=-1, keepdim=True))
+    return quantize_with_scale(x, a_scale), a_scale
+
+
+def activation_scale(a_max: torch.Tensor) -> torch.Tensor:
+    """A row's max |x| → its activation scale."""
+    return a_max.clamp_min(1e-8) * _INV_127
+
+
+def quantize_with_scale(x: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
+    return torch.round(x.float() / a_scale).clamp(-127, 127).to(torch.int8)
 
 
 class QuantLinear(nn.Module):
@@ -120,16 +130,25 @@ class QuantLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x_q, a_scale = quantize_activations(x)
+        return self.epilogue(self.accumulate(x_q), a_scale, x.dtype)
+
+    def accumulate(self, x_q: torch.Tensor) -> torch.Tensor:
+        """(..., in) int8 codes → (..., out) int32 accumulator."""
         acc = int8_matmul(x_q.reshape(-1, self.in_features), self.weight_q.T)
-        out = acc.reshape(*x.shape[:-1], self.out_features).float() * a_scale
+        return acc.reshape(*x_q.shape[:-1], self.out_features)
+
+    def epilogue(self, acc: torch.Tensor, a_scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """int32 accumulator and (..., 1) activation scales → the output
+        in ``dtype``: the dequantization, the weight scale and the bias."""
+        out = acc.float() * a_scale
         if self.bias is None:
-            return (out * self.weight_scale).to(x.dtype)
+            return (out * self.weight_scale).to(dtype)
         # XLA contracts ``· kernel_scale + bias`` into one fused
         # multiply-add. In f64 the product is exact and the sum rounds
         # once before the f32 rounding: the FMA's result, but where that
         # sum lands on an f32 halfway point (~2^-29 of the elements).
         out = out.double() * self.weight_scale.double() + self.bias.double()
-        return out.float().to(x.dtype)
+        return out.float().to(dtype)
 
 
 def quantize_dense_params(weight: torch.Tensor, bias: torch.Tensor | None = None) -> dict:

@@ -23,10 +23,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from image_to_pointcloud_tpu_torch.models.attention import multi_head_attention
-from image_to_pointcloud_tpu_torch.models.dinov2 import Mlp
+from image_to_pointcloud_tpu_torch.models.dinov2 import Block, Mlp, run_blocks, tp_width
 from image_to_pointcloud_tpu_torch.models.quantize import block_dense
 from image_to_pointcloud_tpu_torch.ops.resize import resample_matrix
 
@@ -54,26 +52,30 @@ class ViTConfig:
 
 class ViTBlock(nn.Module):
     """Pre-LN block (``modeling_dpt.DPTViTLayer``): LN → MHA → +residual,
-    LN → MLP → +residual."""
+    LN → MLP → +residual. ``tp`` as :class:`.dinov2.Block`'s."""
 
-    def __init__(self, cfg: ViTConfig):
+    ls1 = ls2 = None  # no LayerScale
+
+    def __init__(self, cfg: ViTConfig, tp: int = 1):
         super().__init__()
         d = cfg.hidden_size
-        self.num_heads = cfg.num_heads
+        self.num_heads = tp_width(cfg.num_heads, tp, "heads")
+        dl = tp_width(d, tp, "hidden size")
         self.use_flash = cfg.use_flash_attention
         self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.q, self.k, self.v, self.proj = (block_dense(cfg.quantized, d, d) for _ in range(4))
+        self.q, self.k, self.v = (block_dense(cfg.quantized, d, dl) for _ in range(3))
+        self.proj = block_dense(cfg.quantized, dl, d)
         self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.mlp = Mlp(cfg)
+        self.mlp = Mlp(cfg, tp)
+
+    attn_out = Block.attn_out
+    mlp_out = Block.mlp_out
+    attend = Block.attend
+    mlp_hidden = Block.mlp_hidden
 
     def forward(self, x):
-        h = self.norm1(x)
-        h = multi_head_attention(
-            self.q(h), self.k(h), self.v(h), num_heads=self.num_heads,
-            use_flash=self.use_flash,
-        )
-        x = x + self.proj(h)
-        return x + self.mlp(self.norm2(x))
+        x = x + self.proj(self.attend(self.norm1(x)))
+        return x + self.mlp.fc2(self.mlp_hidden(self.norm2(x)))
 
 
 class ViTBackbone(nn.Module):
@@ -106,19 +108,24 @@ class ViTBackbone(nn.Module):
             [pos[:, :1].float(), grid.reshape(1, ph * pw, cfg.hidden_size)], dim=1
         ).to(pos.dtype)
 
-    def forward(self, pixels: torch.Tensor) -> list[torch.Tensor]:
-        cfg = self.cfg
+    def embed(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) normalized pixels → (B, 1+ph·pw, D) tokens."""
         b, h, w, _ = pixels.shape
-        p = cfg.patch_size
+        p = self.cfg.patch_size
         ph, pw = h // p, w // p
         x = pixels.reshape(b, ph, p, pw, p, 3).permute(0, 1, 3, 2, 4, 5)
         x = self.patch_embed(x.reshape(b, ph * pw, p * p * 3).to(self.patch_embed.weight.dtype))
         x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
-        x = x + self._pos_embed(ph, pw)
-        taps = {}
-        remat = cfg.remat_blocks and torch.is_grad_enabled()
-        for i, blk in enumerate(self.blocks):
-            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
-            if i in cfg.out_layers:
-                taps[i] = x
-        return [taps[i] for i in cfg.out_layers]
+        return x + self._pos_embed(ph, pw)
+
+    @property
+    def tap_blocks(self) -> tuple[int, ...]:
+        return tuple(self.cfg.out_layers)
+
+    def block_args(self, grid: tuple[int, int], device: torch.device) -> tuple:
+        return ()
+
+    def forward(self, pixels: torch.Tensor) -> list[torch.Tensor]:
+        p = self.cfg.patch_size
+        grid = (pixels.shape[1] // p, pixels.shape[2] // p)
+        return run_blocks(self, self.embed(pixels), grid)

@@ -210,10 +210,16 @@ class ZoeDepth(nn.Module):
             cfg, cfg.num_relative_features + 1, e
         )
 
+    def embed(self, pixels: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int]]:
+        p = self.cfg.backbone.patch_size
+        return self.backbone.embed(pixels), (pixels.shape[1] // p, pixels.shape[2] // p)
+
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         p = self.cfg.backbone.patch_size
-        grid = (pixels.shape[1] // p, pixels.shape[2] // p)
-        stages = self.reassemble(self.backbone(pixels), grid)
+        return self.finish(self.backbone(pixels), (pixels.shape[1] // p, pixels.shape[2] // p))
+
+    def finish(self, taps: list[torch.Tensor], grid: tuple[int, int]) -> torch.Tensor:
+        stages = self.reassemble([t.float() for t in taps], grid)
         feats = [getattr(self, f"conv{i}")(s) for i, s in enumerate(stages)]
         bottleneck = feats[-1]
 

@@ -33,6 +33,7 @@ The dummy models' graphs (:func:`dummy_point_cloud_graph`,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -381,7 +382,21 @@ class DepthPipeline:
     sub-byte one; ``IPC_TPU_DEPTH12=1`` selects the flat 12-bit pack and
     ``IPC_TPU_DEPTH16=1`` the u16 contract. On the JPEG ingest the host
     rebuilds the grid colours from the coefficients when it can;
-    ``IPC_TPU_HOST_COLORS=0`` keeps the device's 4:2:0 ride-along."""
+    ``IPC_TPU_HOST_COLORS=0`` keeps the device's 4:2:0 ride-along.
+
+    ``mesh`` (``parallel/``) serves on a grid of device slots: each batch
+    is padded to a multiple of the ``data`` slots, its rows split over
+    them, and every data slot runs the whole pipeline on its rows (K2 and
+    K3 once per data slot), the results gathered on the first slot and cut
+    back to the real batch. The model runs megatron-sharded over the
+    ``model`` slots (:class:`~..parallel.sharding.MeshedModel`), or, on a
+    (data, pipe) mesh with ``pipe`` > 1, GPipe-pipelined over the ``pipe``
+    slots in up to ``pipe_microbatches`` microbatches
+    (:class:`~..parallel.pipeline_par.PipelinedModel`); a mesh with
+    neither replicates it on every data slot. On a mesh the pipeline takes
+    ``model`` over (best given on the CPU, as :class:`~..serve.models.
+    ModelManager` gives it) and keeps its blocks only as the slots hold
+    them: :attr:`model` is then the model without its blocks."""
 
     def __init__(
         self,
@@ -389,10 +404,18 @@ class DepthPipeline:
         *,
         model_target: "int | tuple[int, int] | None" = None,
         quantized_transfer: bool | None = None,
+        mesh=None,
+        pipe_microbatches: int = 4,
     ):
-        self.model = model.eval()
         self.cfg = model.cfg
-        self.device = next(model.parameters()).device
+        self.mesh = mesh
+        self.meshed, self._slots = self._place(model.eval(), mesh, pipe_microbatches)
+        if mesh is not None:
+            from image_to_pointcloud_tpu_torch.parallel.sharding import without_blocks
+
+            model = without_blocks(model)
+        self.model = model
+        self.device = self._slots[0][0]
         (
             self.model_target,
             self.size_multiple,
@@ -410,6 +433,52 @@ class DepthPipeline:
             else (12 if os.environ.get("IPC_TPU_DEPTH12") == "1" else 8)
         )
         self.host_colors_enabled = os.environ.get("IPC_TPU_HOST_COLORS", "1") != "0"
+
+    @staticmethod
+    def _place(model: nn.Module, mesh, pipe_microbatches: int) -> tuple:
+        """The meshed model (None without a mesh, or where the data slots
+        hold replicas) and the (device, depth forward) of each data slot."""
+        if mesh is None:
+            return None, [(next(model.parameters()).device, model)]
+        from image_to_pointcloud_tpu_torch.parallel.sharding import (
+            DATA_AXIS,
+            MODEL_AXIS,
+            MeshedModel,
+            replicate,
+        )
+
+        n = mesh.shape[DATA_AXIS]
+        if mesh.shape.get("pipe", 1) > 1:
+            from image_to_pointcloud_tpu_torch.parallel.pipeline_par import PipelinedModel
+
+            meshed = PipelinedModel(model, mesh, num_microbatches=pipe_microbatches)
+        elif MODEL_AXIS in mesh.shape:
+            meshed = MeshedModel(model, mesh)
+        else:  # e.g. --mesh pipe=1,data=N: plain DP, the model replicated
+            return None, [(mesh.device(data=d),
+                           replicate(model, mesh.device(data=d), detach=True))
+                          for d in range(n)]
+        return meshed, [(mesh.device(data=d), functools.partial(meshed.forward_slot, d))
+                        for d in range(n)]
+
+    def _data_pad(self, b: int) -> int:
+        """Rows of padding so the batch divides the mesh's data slots (a
+        lone request on a data=2 mesh must still split)."""
+        return (-b) % len(self._slots)
+
+    def _run_slots(self, rows, in_hw, options, want_preview, b, **kw):
+        """``rows(d, device) -> (img, scales)`` of each data slot → the
+        batch's (out, preview) on the first slot, cut back to ``b`` rows."""
+        outs = [
+            self._forward(*rows(d, dev), in_hw, options, want_preview, model=fwd, **kw)
+            for d, (dev, fwd) in enumerate(self._slots)
+        ]
+        if len(outs) == 1:
+            return outs[0]
+        out = torch.cat([o.to(self.device) for o, _ in outs])[:b]
+        prev = None if outs[0][1] is None else torch.cat(
+            [p.to(self.device) for _, p in outs])[:b]
+        return out, prev
 
     def _depth_codec_bits(self, hh: int, ww: int) -> int:
         """Effective depth codec for an (hh, ww) strided grid: the tiled
@@ -431,11 +500,13 @@ class DepthPipeline:
         *,
         jpeg: bool = False,
         host_colors: bool = False,
+        model=None,
     ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """(B, sh, sw, 3) f32 source pixels (the upload, or its JPEG
         decode at ``spec.out_hw``) + (B,) f32 scales, on the model's
         device, of an upload of size ``in_hw`` → (the (B, 8, N) packed
-        points or the (B, nbytes) u8 bundle, preview or None)."""
+        points or the (B, nbytes) u8 bundle, preview or None); ``model``
+        is the depth forward (default: the pipeline's model)."""
         opts = options
         h0, w0 = in_hw
         h, w = _proc_hw(h0, w0)
@@ -465,7 +536,7 @@ class DepthPipeline:
             img_in, (mh, mw), mean=self.pixel_mean, std=self.pixel_std,
             method=self.resize_method,
         )
-        depth = self.model(x)  # (B, mh, mw) f32
+        depth = (model or self.model)(x)  # (B, mh, mw) f32
         if pad_h or pad_w:
             # ZoeDepth's post-process: bicubic (align_corners=False) back
             # to the padded size, then the margins cropped.
@@ -572,13 +643,17 @@ class DepthPipeline:
         imgs = np.stack(images_rgb_u8)
         b, h0, w0 = imgs.shape[:3]
         scales = np.broadcast_to(np.asarray(depth_scales, np.float32), (b,)).copy()
-        out, prev = self._forward(
-            torch.from_numpy(imgs).to(self.device).float(),
-            torch.from_numpy(scales).to(self.device),
-            (h0, w0),
-            options,
-            want_preview,
-        )
+        pad = self._data_pad(b)
+        run_imgs = np.concatenate([imgs, imgs[-1:].repeat(pad, 0)]) if pad else imgs
+        run_scales = np.concatenate([scales, scales[-1:].repeat(pad)]) if pad else scales
+        per = (b + pad) // len(self._slots)
+
+        def rows(d, dev):
+            sl = slice(d * per, (d + 1) * per)
+            return (torch.from_numpy(run_imgs[sl]).to(dev).float(),
+                    torch.from_numpy(run_scales[sl]).to(dev))
+
+        out, prev = self._run_slots(rows, (h0, w0), options, want_preview, b)
         return self._handle(out, prev, (h0, w0), options, scales, imgs=imgs)
 
     @staticmethod
@@ -669,22 +744,26 @@ class DepthPipeline:
             cols = [j.grid_colors(step) for j in jpegs]
             if all(c is not None for c in cols):
                 host_rgb = np.stack(cols)
-        caps = plan_sparse_batch(jpegs)
+        pad = self._data_pad(b)
+        run = jpegs + [jpegs[-1]] * pad
+        run_scales = np.concatenate([scales, scales[-1:].repeat(pad)]) if pad else scales
+        caps = plan_sparse_batch(run)
         if caps is not None:
-            payload = self.pack_jpeg_sparse_payload(jpegs, scales, *caps)
+            payload = self.pack_jpeg_sparse_payload(run, run_scales, *caps)
         else:
-            payload = self.pack_jpeg_payload(jpegs, scales)
-        with torch.inference_mode():
-            dev_payload = torch.from_numpy(payload).to(self.device)
+            payload = self.pack_jpeg_payload(run, run_scales)
+        per = (b + pad) // len(self._slots)
+
+        @torch.inference_mode()
+        def rows(d, dev):
+            dev_payload = torch.from_numpy(payload[d * per : (d + 1) * per]).to(dev)
             if caps is not None:
-                img, dev_scales = _unpack_jpeg_sparse_batch(dev_payload, spec, *caps)
-            else:
-                img, dev_scales = _unpack_jpeg_batch(dev_payload, spec)
+                return _unpack_jpeg_sparse_batch(dev_payload, spec, *caps)
+            return _unpack_jpeg_batch(dev_payload, spec)
+
         in_hw = (spec.height, spec.width)
-        out, prev = self._forward(
-            img, dev_scales, in_hw, options, want_preview,
-            jpeg=True, host_colors=host_rgb is not None,
-        )
+        out, prev = self._run_slots(rows, in_hw, options, want_preview, b, jpeg=True,
+                                    host_colors=host_rgb is not None)
         return self._handle(out, prev, in_hw, options, scales, host_rgb=host_rgb)
 
     def collect(
@@ -879,7 +958,7 @@ def _gray(img: torch.Tensor) -> torch.Tensor:
 
 @torch.inference_mode()
 def dummy_point_cloud_graph(
-    image_rgb_u8: np.ndarray, density: str, device: "str | torch.device" = "cpu"
+    image_rgb_u8: np.ndarray, density: str, device: "str | torch.device" = "cuda"
 ) -> tuple[np.ndarray, np.ndarray]:
     """Intensity-as-depth fallback for the dummy models (reference
     backend/app.py:567-587): (N, 3) f32 points and (N, 3) f32 colours of
@@ -901,7 +980,7 @@ def dummy_point_cloud_graph(
 
 @torch.inference_mode()
 def demo_depth_map_graph(
-    image_rgb_u8: np.ndarray, device: "str | torch.device" = "cpu"
+    image_rgb_u8: np.ndarray, device: "str | torch.device" = "cuda"
 ) -> np.ndarray:
     """Fake depth-map preview for the dummy models (reference
     backend/app.py:589-607): gray → 15×15 Gaussian blur → inverted →

@@ -6,9 +6,13 @@ PyTorch pipeline. Defaults come from the typed config tree
 (``core/config.py``: built-in defaults ← ``IPC_TPU_CONFIG`` JSON file ←
 ``IPC_TPU_*`` env vars), then CLI flags. ``--checkpoint-dir`` (or
 ``IPC_TPU_CHECKPOINT_DIR``) points at HF-layout safetensors checkpoints or
-the port's own ``<model>/torch/checkpoint.pt``. ``--mesh`` (and a mesh
-from the config) is refused with a clear error: ``parallel/`` is not
-ported yet.
+the port's own ``<model>/torch/checkpoint.pt``. ``--mesh`` (or
+``IPC_TPU_MESH``, or the config file's ``"mesh"``) serves on a grid of
+device slots of ``--device``'s type, as the JAX server parses it:
+``auto`` (DP over every visible device; none with one device),
+``data=N,model=M[,seq=S]`` (``make_mesh``) or ``pipe=S,data=N``
+(``make_pipe_mesh``, GPipe). A spec that needs more slots than there are
+devices is refused.
 """
 
 from __future__ import annotations
@@ -21,7 +25,27 @@ import signal
 import threading
 from pathlib import Path
 
-_NOT_PORTED = "is not ported to the PyTorch package yet (see ROADMAP.md)"
+
+def parse_mesh(spec: str | None, device):
+    """A ``--mesh`` spec → None, ``"auto"`` or a mesh over the visible
+    devices of ``device``'s type (``ValueError`` for a bad spec, or one that
+    needs more slots than there are devices)."""
+    if not spec:
+        return None
+    if spec == "auto":
+        return "auto"
+    from image_to_pointcloud_tpu_torch.parallel.sharding import make_mesh, visible_devices
+
+    try:
+        axes = {k.strip(): int(v) for k, v in (kv.split("=") for kv in spec.split(","))}
+    except ValueError:
+        raise ValueError(f"bad mesh spec {spec!r}: want e.g. data=2,model=2 or pipe=4,data=1") from None
+    devices = visible_devices(device)
+    if "pipe" in axes:
+        from image_to_pointcloud_tpu_torch.parallel.pipeline_par import make_pipe_mesh
+
+        return make_pipe_mesh(**axes, devices=devices)
+    return make_mesh(**axes, devices=devices)
 
 
 def main() -> None:
@@ -77,11 +101,17 @@ def main() -> None:
         "--generation", choices=["v1", "v2"], default="v1",
         help="v1: the depth point-cloud API; v2: the textured 3D asset API",
     )
-    # The JAX server's multi-device mesh: refused until parallel/ is ported.
-    parser.add_argument("--mesh", default=cfg.mesh)
+    parser.add_argument(
+        "--mesh", default=cfg.mesh,
+        help="device-slot mesh: 'auto' (DP over all devices), 'data=N,model=M[,seq=S]' "
+        "(batches split over data, encoder blocks megatron-sharded over model), or "
+        "'pipe=S,data=N' (GPipe: encoder stages over S slots)",
+    )
     args = parser.parse_args()
-    if args.mesh:
-        parser.error(f"--mesh {_NOT_PORTED}")
+    try:
+        mesh = parse_mesh(args.mesh, args.device)
+    except (ValueError, TypeError, RuntimeError) as e:
+        parser.error(f"--mesh {args.mesh}: {e}")
 
     from image_to_pointcloud_tpu_torch.serve.http import HttpServer
     from image_to_pointcloud_tpu_torch.utils.logging import configure_logging
@@ -101,7 +131,7 @@ def main() -> None:
             warmup_sizes.append((int(hh), int(ww)))
 
     async def run() -> None:
-        models = ModelManager(args.device, checkpoint_dir=args.checkpoint_dir)
+        models = ModelManager(args.device, checkpoint_dir=args.checkpoint_dir, mesh=mesh)
         if args.generation == "v1":
             from image_to_pointcloud_tpu_torch.serve.app_v1 import create_v1_app
 
@@ -147,8 +177,9 @@ def main() -> None:
             ui_dir = Path(__file__).resolve().parents[2] / "frontend"
             app.router.mount_static("/ui", ui_dir)
         await server.start()
-        logging.info("Serving %s API on %s:%d (%s)", args.generation, args.host,
-                     server.bound_port, args.device)
+        logging.info("Serving %s API on %s:%d (%s, mesh %s)", args.generation, args.host,
+                     server.bound_port, args.device,
+                     None if models.mesh is None else models.mesh.shape)
         if args.generation == "v2":
             # Bound before the model loads: /health answers and /process
             # 503s while this awaits.

@@ -12,7 +12,9 @@ safetensors checkpoint, ``<dir>/<name>/model.safetensors`` or
 ``<dir>/<name>.safetensors``, converted on load; otherwise from a
 deterministic random init with a
 seeded ``torch.Generator`` (made on the CPU, so every device gets the same
-numbers), recorded in :attr:`ModelManager.random_weights`.
+numbers), recorded in :attr:`ModelManager.random_weights`. ``mesh`` (a
+mesh of ``parallel/``, or ``"auto"``) serves every model on a grid of
+device slots (:class:`~..pipeline.graph.DepthPipeline`'s ``mesh``).
 ``triposr``/``instantmesh`` are the reference's capability stubs and have
 no pipeline.
 
@@ -61,6 +63,7 @@ class ModelManager:
         checkpoint_dir: str | None = None,
         model_target: "int | tuple[int, int] | None" = None,
         int8: bool | None = None,
+        mesh=None,
     ):
         # Int8 W8A8 encoder matmuls: by argument, else IPC_TPU_INT8 (1,
         # true or yes), as the JAX server reads it.
@@ -70,6 +73,16 @@ class ModelManager:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
+        # The serving mesh (parallel/): "auto" is DP over every visible
+        # device of ``device``'s type, and no mesh where there is one.
+        if mesh == "auto":
+            from image_to_pointcloud_tpu_torch.parallel.sharding import make_mesh, visible_devices
+
+            devs = visible_devices(self.device)
+            mesh = make_mesh(devices=devs) if len(devs) > 1 else None
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh.device()  # the first slot: where results gather
         self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.checkpoint_dir = checkpoint_dir or os.environ.get(CHECKPOINT_ENV)
         # The family's native target when None (518 for DA, 384 for
@@ -146,4 +159,8 @@ class ModelManager:
             cfg = cfg.with_quantized(True)
             model = build_model(cfg)
             model.load_state_dict(sd, strict=True)
-        return DepthPipeline(model.to(self.device, self.dtype), model_target=self.model_target)
+        # On a mesh the model stays on the CPU: the pipeline places each
+        # slot's piece, so no slot holds the whole encoder.
+        model = model.to(self.dtype) if self.mesh is not None else model.to(
+            self.device, self.dtype)
+        return DepthPipeline(model, model_target=self.model_target, mesh=self.mesh)

@@ -52,6 +52,13 @@ def restore_checkpoint(path: str | os.PathLike) -> dict:
     return torch.load(Path(path) / CHECKPOINT_FILE, map_location="cpu", weights_only=True)
 
 
-def restore_params(path: str | os.PathLike) -> dict[str, torch.Tensor]:
-    """The model's ``state_dict`` from a checkpoint."""
-    return restore_checkpoint(path)["params"]
+def restore_params(path: str | os.PathLike, mesh: Any = None) -> dict:
+    """The model's ``state_dict`` from a checkpoint; with ``mesh``, placed
+    on its slots by the TP rules (``parallel.sharding.shard_params``)
+    straight from host memory, as ``Sharded`` values."""
+    params = restore_checkpoint(path)["params"]
+    if mesh is not None:
+        from image_to_pointcloud_tpu_torch.parallel.sharding import shard_params
+
+        params = shard_params(params, mesh)
+    return params

@@ -11,6 +11,7 @@ allocator never reuses its memory early.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import Any, Callable, Iterable, Iterator
@@ -29,10 +30,29 @@ def _tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
-def _leaves(tree: Any) -> list:
+def _tree_list(tree: Any) -> list:
     out: list = []
     _tree_map(out.append, tree)
     return out
+
+
+def _tree_zip(fn: Callable, tree: Any, other: Any) -> Any:
+    """``fn`` over the leaves of two trees of one structure."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_zip(fn, x, y) for x, y in zip(tree, other))
+    if isinstance(tree, dict):
+        return {k: _tree_zip(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
+def _leaves(tree: Any) -> list[torch.Tensor]:
+    """The tensors of a placed batch (every distinct shard of a
+    :class:`~..parallel.sharding.Sharded` leaf)."""
+    tensors: dict = {}
+    for x in _tree_list(tree):
+        for t in (x.shards.flat if hasattr(x, "shards") else [x]):
+            tensors[id(t)] = t
+    return list(tensors.values())
 
 
 def prefetch_to_device(
@@ -40,30 +60,56 @@ def prefetch_to_device(
     *,
     size: int = 2,
     device: "str | torch.device" = "cuda",
+    sharding: Any = None,
 ) -> Iterator[Any]:
     """Iterate ``batches`` (tuples, lists or dicts of numpy arrays) as
     tensors on ``device``, with ``size`` batches staged ahead: the copy of
     batch k+1 overlaps the step on batch k, classic double buffering with
-    ``size=2``. Abandoning the iterator (an early break, an error, close)
-    stops the worker and drops the staged batches; an error in ``batches``
-    is raised in the consumer."""
+    ``size=2``. With ``sharding`` (a ``NamedSharding`` of
+    ``parallel/sharding.py``, or a function of the array giving one, e.g.
+    ``lambda x: batch_sharding(mesh, x.ndim)``) each array is placed on the
+    mesh's slots instead, as a ``Sharded``. Abandoning the iterator (an
+    early break, an error, close) stops the worker and drops the staged
+    batches; an error in ``batches`` is raised in the consumer."""
+    from image_to_pointcloud_tpu_torch.parallel.sharding import device_put
+
     device = torch.device(device)
     q: queue.Queue = queue.Queue(maxsize=size)
     _END = object()
     err: list[BaseException] = []
     stop = threading.Event()
+    sides: dict = {}  # device -> its side stream, made at first use
+
+    def target(x):
+        if sharding is None:
+            return device
+        return sharding(x) if callable(sharding) else sharding
 
     def put(batch):
-        if device.type != "cuda":
-            return _tree_map(lambda x: torch.as_tensor(np.asarray(x)).to(device), batch), None
-        with torch.cuda.stream(side):
-            out = _tree_map(
-                lambda x: torch.from_numpy(np.ascontiguousarray(x)).pin_memory().to(
-                    device, non_blocking=True),
-                batch,
-            )
-            done = torch.cuda.Event()
-            done.record(side)
+        targets = _tree_map(target, batch)
+        devices = {device} if sharding is None else {
+            d for t in _tree_list(targets) for d in t.mesh.devices.flat}
+        cuda = sorted((d for d in devices if d.type == "cuda"), key=str)
+        for d in cuda:
+            sides.setdefault(d, torch.cuda.Stream(d))
+
+        def place(x, where):
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            if cuda:
+                t = t.pin_memory()
+            if isinstance(where, torch.device):
+                return t.to(where, non_blocking=bool(cuda))
+            return device_put(t, where, non_blocking=bool(cuda))
+
+        with contextlib.ExitStack() as ctx:
+            for d in cuda:
+                ctx.enter_context(torch.cuda.stream(sides[d]))
+            out = _tree_zip(place, batch, targets)
+        done = []
+        for d in cuda:
+            e = torch.cuda.Event()
+            e.record(sides[d])
+            done.append((d, e))
         return out, done
 
     def enqueue(item) -> bool:
@@ -88,7 +134,6 @@ def prefetch_to_device(
         finally:
             enqueue(_END)
 
-    side = torch.cuda.Stream(device) if device.type == "cuda" else None
     threading.Thread(target=worker, daemon=True).start()
     try:
         while True:
@@ -98,11 +143,11 @@ def prefetch_to_device(
                     raise err[0]
                 return
             batch, done = item
-            if done is not None:
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(done)
+            for d, event in done:
+                torch.cuda.current_stream(d).wait_event(event)
+            if done:
                 for t in _leaves(batch):
-                    t.record_stream(consumer)
+                    t.record_stream(torch.cuda.current_stream(t.device))
             yield batch
     finally:
         # Generator close/GC (GeneratorExit lands here): release the

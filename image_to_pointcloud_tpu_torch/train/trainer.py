@@ -1,8 +1,18 @@
-"""Fine-tuning on one device: the train config and the trainer.
+"""Fine-tuning: the train config and the trainer, on one device or a mesh.
 
-Counterpart of ``image_to_pointcloud_tpu/train/trainer.py`` on a
-one-device mesh (where its ``shard_params`` and ``batch_sharding`` are
-identities). The step is the JAX package's optax chain,
+Counterpart of ``image_to_pointcloud_tpu/train/trainer.py``. The trainer
+runs on a mesh (``parallel/sharding.py``; one device is the one-slot mesh
+``make_mesh(data=1, devices=[device])``): the batch is split over the
+``data`` slots and the encoder blocks are megatron-sharded over the ``model``
+slots (:class:`~..parallel.sharding.MeshedModel`, ``live``): each
+parameter exists once per model slot and the data slots read it through
+differentiable copies, so its gradient sums in that one tensor, and the
+clip and AdamW see each parameter once. The loss is taken on the
+predictions gathered on the first slot, as JAX takes it on the global
+batch (``silog_loss`` and ``affine_invariant_loss`` are not means of
+per-slot losses). :meth:`Trainer.state_dict` gathers the shards back into
+the one-device layout, so the checkpoint format is the same. The step is
+the JAX package's optax chain,
 ``clip_by_global_norm(grad_clip)`` → ``adamw(lr, weight_decay)``:
 
 * the clip as optax computes it: the global norm √Σ‖g‖², and when it is
@@ -71,7 +81,12 @@ def train_model_config(model_cfg: ModelConfig, remat: bool) -> ModelConfig:
 
 
 class Trainer:
-    """Owns the f32 model, the optimizer state and the train step."""
+    """Owns the f32 model, the optimizer state and the train step, on
+    ``mesh`` (default: the one slot ``device``; ``device`` is then the
+    first slot's). ``state_dict`` may come placed (``restore_params(mesh=)``).
+    Without model slots :attr:`model` is the one-device module, whose
+    parameters are the ones trained (in its order, so an optimizer state
+    resumes); with them it is None (the blocks are sharded: :attr:`net`)."""
 
     def __init__(
         self,
@@ -80,13 +95,36 @@ class Trainer:
         device: "str | torch.device" = "cuda",
         cfg: TrainConfig = TrainConfig(),
         opt_state: Any = None,
+        mesh=None,
     ):
+        from image_to_pointcloud_tpu_torch.parallel.sharding import (
+            MODEL_AXIS,
+            MeshedModel,
+            Sharded,
+            gather_params,
+            make_mesh,
+            visible_devices,
+        )
+
+        if mesh is None:
+            mesh = make_mesh(data=1, devices=visible_devices(device)[:1])
         self.cfg = cfg
-        self.device = torch.device(device)
-        self.model = build_model(train_model_config(model_cfg, cfg.remat))
-        self.model.load_state_dict(state_dict, strict=True)
-        self.model.to(self.device, torch.float32)
-        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        self.mesh = mesh
+        self.device = mesh.device()
+        if any(isinstance(v, Sharded) for v in state_dict.values()):
+            state_dict = gather_params(state_dict, torch.device("cpu"))
+        # Built on the CPU and placed by MeshedModel, slot by slot.
+        model = build_model(train_model_config(model_cfg, cfg.remat))
+        model.load_state_dict(state_dict, strict=True)
+        self.net = MeshedModel(model.float(), mesh, live=True)
+        if mesh.shape[MODEL_AXIS] == 1:
+            self.model = model
+            self.params = [p for p in model.parameters() if p.requires_grad]
+        elif opt_state is not None:
+            raise ValueError("optimizer state resumes on a mesh without model slots only")
+        else:
+            self.model = None
+            self.params = [p for p in self.net.parameters() if p.requires_grad]
         self.opt = torch.optim.AdamW(
             self.params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=cfg.weight_decay,
@@ -97,21 +135,43 @@ class Trainer:
 
     def _clip_by_global_norm(self) -> None:
         grads = [p.grad for p in self.params]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        norm = torch.sqrt(sum(torch.sum(g * g).to(self.device) for g in grads))
         keep = norm < self.cfg.grad_clip
         for g in grads:
-            g.copy_(torch.where(keep, g, (g / norm) * self.cfg.grad_clip))
+            n, k = norm.to(g.device), keep.to(g.device)
+            g.copy_(torch.where(k, g, (g / n) * self.cfg.grad_clip))
 
-    def train_step(self, pixels: torch.Tensor, target: torch.Tensor, mask=None) -> torch.Tensor:
+    def _global(self, x, dtype) -> torch.Tensor:
+        from image_to_pointcloud_tpu_torch.parallel.sharding import Sharded
+
+        if isinstance(x, Sharded):
+            return x.gather(self.device).to(dtype)
+        return torch.as_tensor(x, device=self.device, dtype=dtype)
+
+    def _predict(self, pixels) -> torch.Tensor:
+        """Depth of the whole batch on the first slot; each data slot
+        predicts its rows (``pixels`` may come placed, as
+        ``prefetch_to_device(sharding=...)`` gives them)."""
+        from image_to_pointcloud_tpu_torch.parallel.sharding import Sharded, split_rows
+
+        if isinstance(pixels, Sharded):
+            rows = pixels.data_shards()
+        else:
+            rows = split_rows(self._global(pixels, torch.float32), self.mesh)
+        return torch.cat([self.net.forward_slot(d, r.float()).to(self.device)
+                          for d, r in enumerate(rows)])
+
+    def train_step(self, pixels, target, mask=None) -> torch.Tensor:
         """One optimization step on (B, H, W, 3) pixels and (B, H, W) depth
         targets (mask: all valid by default); returns the loss (0-d,
         detached)."""
-        pixels = torch.as_tensor(pixels, device=self.device, dtype=torch.float32)
-        target = torch.as_tensor(target, device=self.device, dtype=torch.float32)
+        target = self._global(target, torch.float32)
         if mask is None:
             mask = torch.ones(target.shape, dtype=torch.bool, device=self.device)
+        else:
+            mask = self._global(mask, torch.bool)
         self.opt.zero_grad(set_to_none=True)
-        loss = self._loss(self.model(pixels), target, mask)
+        loss = self._loss(self._predict(pixels), target, mask)
         loss.backward()
         for p in self.params:
             if p.grad is None:
@@ -121,8 +181,9 @@ class Trainer:
         return loss.detach()
 
     def state_dict(self) -> dict[str, torch.Tensor]:
-        return self.model.state_dict()
+        """The model's ``state_dict`` in the one-device layout."""
+        return self.net.gathered_state_dict()
 
     @torch.no_grad()
-    def predict(self, pixels: torch.Tensor) -> torch.Tensor:
-        return self.model(torch.as_tensor(pixels, device=self.device, dtype=torch.float32))
+    def predict(self, pixels) -> torch.Tensor:
+        return self._predict(pixels)

@@ -188,16 +188,29 @@ def test_device_and_int8_reach_the_manager(tmp_path, monkeypatch):
             tcli.main(["convert", img, "-o", str(tmp_path / "x.ply"), "--model", "tiny-da"])
 
 
-@pytest.mark.parametrize("argv", [["serve", "--mesh", "data=2"],
-                                  ["train", "--steps", "2", "--mesh", "data=2"]])
-def test_unported_commands_refuse(argv, capsys):
-    """The multi-device mesh is refused until ``parallel/`` is ported, in
-    ``serve`` and in ``train`` alike."""
-    with pytest.raises(SystemExit) as exc:
-        tcli.main(argv)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and "--mesh" in err
+@pytest.mark.parametrize("argv", [["serve", "--device", "cpu", "--mesh", "data=2"],
+                                  ["train", "--steps", "2", "--mesh", "data=1"]])
+def test_unported_commands_refuse(argv, capsys, tmp_path, monkeypatch):
+    """``--mesh`` in ``serve`` and ``train`` builds a mesh of device slots:
+    ``train --mesh data=1`` on the CPU runs its 2 steps on it; ``serve
+    --mesh data=2`` needs more slots than the one CPU and fails with that
+    error."""
+    if argv[0] == "serve":
+        with pytest.raises(SystemExit) as exc:
+            tcli.main(argv)
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert "more slots than devices (1 given)" in err and "--mesh data=2" in err
+        return
+    from image_to_pointcloud_tpu_torch.models import depth_anything as tda
+
+    monkeypatch.setitem(tda.PRESETS, "tiny-metric", _tiny_metric_cfg())
+    out = tmp_path / "ck"
+    assert tcli.main([*argv, "--model", "tiny-metric", "--batch-size", "2", "--image-size", "56",
+                      "--device", "cpu", "-o", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "mesh {'data': 1, 'model': 1, 'seq': 1} over ['cpu']" in text
+    assert "step     2  loss " in text and (out / "checkpoint.pt").exists()
 
 
 def _tiny_metric_cfg():

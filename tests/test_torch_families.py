@@ -355,7 +355,7 @@ def test_dummy_point_cloud_graph_bit_identical(density):
     from image_to_pointcloud_tpu_torch.pipeline import graph
 
     img = np.random.default_rng(5).integers(0, 256, (61, 83, 3), dtype=np.uint8)
-    pts, cols = graph.dummy_point_cloud_graph(img, density)
+    pts, cols = graph.dummy_point_cloud_graph(img, density, "cpu")
     rpts, rcols = jgraph.dummy_point_cloud_graph(img, density)
     np.testing.assert_array_equal(pts, rpts)
     np.testing.assert_array_equal(cols, rcols)
@@ -366,7 +366,7 @@ def test_demo_depth_map_graph_bit_identical():
     from image_to_pointcloud_tpu_torch.pipeline import graph
 
     img = np.random.default_rng(6).integers(0, 256, (61, 83, 3), dtype=np.uint8)
-    ours = graph.demo_depth_map_graph(img)
+    ours = graph.demo_depth_map_graph(img, "cpu")
     ref = np.asarray(jgraph.demo_depth_map_graph(jnp.asarray(img)))
     assert ours.dtype == np.uint8 and ours.shape == (61, 83, 3)
     np.testing.assert_array_equal(ours, ref)

@@ -394,25 +394,59 @@ def test_port_source_is_standalone(rel):
 
 
 def test_server_refuses_unported_flags(tmp_path):
-    """``--mesh`` is refused, and so is a mesh from the config, as the JAX
-    server's flag defaults to it: ``IPC_TPU_MESH`` or a config file's
-    ``"mesh"``."""
+    """The mesh from ``--mesh``, ``IPC_TPU_MESH`` or a config file's
+    ``"mesh"`` (the JAX server's sources): ``data=1`` is accepted, builds
+    the mesh over the CPU and serves /health; ``data=2`` needs more slots
+    than the one CPU device and is refused with that error."""
     import json
     import os
+    import re
+    import signal
 
-    cfg_file = tmp_path / "config.json"
-    cfg_file.write_text(json.dumps({"mesh": "data=2"}))
+    import httpx
+
     env = {k: v for k, v in os.environ.items() if k not in ("IPC_TPU_MESH", "IPC_TPU_CONFIG")}
-    for args, extra_env in [
-        (["--jpeg-device-decode", "--checkpoint-dir", "ckpt", "--mesh", "data=2"], {}),
-        (["--jpeg-device-decode"], {"IPC_TPU_MESH": "data=2"}),
-        ([], {"IPC_TPU_CONFIG": str(cfg_file)}),
-    ]:
-        proc = subprocess.run(
-            [sys.executable, "-m", "image_to_pointcloud_tpu_torch.serve", *args],
-            cwd=REPO, capture_output=True, text=True, timeout=120, env={**env, **extra_env},
+
+    def sources(spec):
+        cfg_file = tmp_path / f"config_{spec.replace('=', '')}.json"
+        cfg_file.write_text(json.dumps({"mesh": spec}))
+        return [
+            (["--jpeg-device-decode", "--checkpoint-dir", "ckpt", "--mesh", spec], {}),
+            (["--jpeg-device-decode"], {"IPC_TPU_MESH": spec}),
+            ([], {"IPC_TPU_CONFIG": str(cfg_file)}),
+        ]
+
+    def start(i, args, extra_env):
+        return subprocess.Popen(
+            [sys.executable, "-m", "image_to_pointcloud_tpu_torch.serve", "--device", "cpu",
+             "--port", "0", "--output-dir", str(tmp_path / f"out{i}"), *args],
+            cwd=REPO, stderr=subprocess.PIPE, text=True, env={**env, **extra_env},
         )
-        assert proc.returncode == 2, (extra_env, proc.stderr)
-        assert "--mesh is not ported" in proc.stderr
-        assert "--jpeg-device-decode is not ported" not in proc.stderr
-        assert "--checkpoint-dir is not ported" not in proc.stderr
+
+    servers = [start(i, a, e) for i, (a, e) in enumerate(sources("data=1"))]
+    refused = [start(3 + i, a, e) for i, (a, e) in enumerate(sources("data=2"))]
+    try:
+        for proc in servers:
+            lines, port = [], None
+            deadline = time.time() + 120
+            while port is None and time.time() < deadline:
+                line = proc.stderr.readline()
+                assert line, "".join(lines)
+                lines.append(line)
+                m = re.search(r"Serving v1 API on [\d.]+:(\d+) \(cpu, mesh (.*)\)", line)
+                port = int(m.group(1)) if m else None
+            assert port, "".join(lines)
+            assert m.group(2) == "{'data': 1, 'model': 1, 'seq': 1}"
+            assert httpx.get(f"http://127.0.0.1:{port}/health", timeout=30).status_code == 200
+    finally:
+        for proc in servers:
+            proc.send_signal(signal.SIGTERM)
+    for proc in servers:
+        assert proc.wait(timeout=60) == 0
+        proc.stderr.close()
+    for proc in refused:
+        err = proc.communicate(timeout=120)[1]
+        assert proc.returncode == 2, err
+        assert "--mesh data=2: mesh (data=2, model=1, seq=1) needs 2 slots: more slots than " \
+               "devices (1 given)" in err
+        assert "not ported" not in err
