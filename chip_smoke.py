@@ -7,10 +7,13 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 3. K1 flash attention vs its plain version: bf16 (the tensor-core
    kernel) at DA-V2-Small's (1, 6, 1370, 64) and (2, 6, 1370, 64), at
    classic DPT-Large's (1, 16, 577, 64) and at a ragged (1, 3, 65, 64);
-   f32 (the SIMT kernel) at (2, 6, 1370, 64). Timed at the two serving
-   shapes: device time, host-inclusive time, the plain version's, and
-   ``scaled_dot_product_attention``'s on the same tensors (the yardstick,
-   never called by the port), beside the bound.
+   f32 (the SIMT kernel) at (2, 6, 1370, 64); at the head dims no preset
+   serves, in bf16 and f32: (1, 6, 1370, 32) and (1, 4, 1370, 128) (the
+   kD = 32 and 128 instances) and (1, 6, 1370, 40) and (1, 8, 577, 80)
+   (D below its instance's width). Timed at the two serving shapes and
+   at each of those: device time, host-inclusive time, the plain
+   version's, and ``scaled_dot_product_attention``'s on the same tensors
+   (the yardstick, never called by the port), beside the bound.
 4. K2 grid-kNN vs its plain version, bit for bit, on two inputs at
    (1, 259, 259, 3) — 518² at medium density, one request: points
    uniform in a cube (the worst case: grid position says nothing about
@@ -24,8 +27,11 @@ Phases (any failure exits non-zero, and the result lines are not printed):
    inputs are timed beside two bounds (the work no tap order can skip,
    and the reference's full cascade on every tap), with the share of the
    61 taps after the first 20 that insert into the top-20 list, per lane
-   and per 8×4 warp (replayed in plain torch). The kernels line reports
-   the cube, as every PR has; the surface rides along.
+   and per 8×4 warp (replayed in plain torch). The general kernel at
+   (k, window) = (10, 7), (64, 8) and (1, 1), bit for bit on the 259²
+   cube, the surface and the NaN/inf grid; (10, 7) timed on both 259²
+   inputs beside its bound. The kernels line reports the cube at (20,
+   4), as every PR has; the rest rides along.
 5. K3 unproject vs its plain version, bit for bit, with u8 and f32
    images: (1, 518, 518) step 2 (one request), batch 2, odd N at steps
    1, 2 and 4 (output rows starting at every residue mod 4), even N, and
@@ -39,7 +45,8 @@ Phases (any failure exits non-zero, and the result lines are not printed):
    the three families (Depth-Anything-V2, classic DPT, ZoeDepth) with
    64-wide heads, same weights, f32, TF32 off, through the f32 return
    and through the quantized bundle; then the same over their int8 W8A8
-   encoders.
+   encoders. Each result is logged beside the host CPU's capability, the
+   f32 return's RMSE and the bundle codec's own RMSE on the CPU.
 9. the advanced pipelines (metric, tiled high resolution, video) on a
    tiny Depth-Anything, card vs CPU, on both transfer contracts; the
    voxel op card vs CPU on one 200,000-point cloud.
@@ -263,38 +270,51 @@ def _timed_kernel(name: str, kernel, plain, library=None) -> dict:
     return out
 
 
+# K1 at head dims other than the served 64 (no preset serves one): the
+# kD = 32 and 128 instances, and D below its instance's width (40, 80).
+K1_HEAD_DIM_SHAPES = [(1, 6, 1370, 32), (1, 6, 1370, 40), (1, 8, 577, 80), (1, 4, 1370, 128)]
+
+
 def phase_k1() -> dict:
     from image_to_pointcloud_tpu_torch.models.attention import attention_plain, flash_attention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     timed = {}
-    for shape, dtype in [((1, 6, 1370, 64), torch.bfloat16), ((2, 6, 1370, 64), torch.bfloat16),
-                         ((1, 16, 577, 64), torch.bfloat16), ((1, 3, 65, 64), torch.bfloat16),
-                         ((2, 6, 1370, 64), torch.float32)]:
+    served = [((1, 6, 1370, 64), torch.bfloat16), ((2, 6, 1370, 64), torch.bfloat16),
+              ((1, 16, 577, 64), torch.bfloat16), ((1, 3, 65, 64), torch.bfloat16),
+              ((2, 6, 1370, 64), torch.float32)]
+    head_dims = [(s, dt) for s in K1_HEAD_DIM_SHAPES for dt in (torch.bfloat16, torch.float32)]
+    for shape, dtype in served + head_dims:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        scale = shape[-1] ** -0.5
         o = flash_attention(q, k, v)
         torch.cuda.synchronize()
-        ref = attention_plain(q, k, v, 1.0 / 8.0)
+        ref = attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
         err = (o.float() - ref).abs().max().item()
         tol = K1_TOL[dtype]
         log(f"K1 {tuple(shape)} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol:g})")
         if not err <= tol:
             raise AssertionError(f"K1 disagrees with its plain version at {shape} {dtype}")
-        if dtype == torch.bfloat16 and shape in ((1, 6, 1370, 64), (1, 16, 577, 64)):
+        if (shape, dtype) in head_dims or shape in ((1, 6, 1370, 64), (1, 16, 577, 64)):
             b, h, n, d = shape
             flops = 4 * b * h * n * n * d  # Q·Kᵀ and P·V, 2 per multiply-add
-            res = {"shape": list(shape), "max_abs_err": err, **_timed_kernel(
-                f"K1 {shape} bf16", lambda: flash_attention(q, k, v),
-                lambda: attention_plain(q, k, v, 1.0 / 8.0),
-                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
-                **bound(4 * b * h * n * d * 2, flops, BF16_TC_FLOP_S)}
-            log(f"K1 {shape} bf16: {flops / 1e9:.3f} GFLOP, {b * h * n * n / 1e6:.2f} M "
-                f"exponentials, {4 * b * h * n * d * 2 / 1e6:.2f} MB: bound {res['bound_ms']:.5f} "
+            nbytes = 4 * b * h * n * d * q.element_size()
+            peak = BF16_TC_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S
+            name = f"K1 {shape} {str(dtype)[6:]}"
+            res = {"shape": list(shape), "dtype": str(dtype)[6:], "max_abs_err": err,
+                   **_timed_kernel(name, lambda: flash_attention(q, k, v),
+                                   lambda: attention_plain(q, k, v, scale),
+                                   lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
+                   **bound(nbytes, flops, peak)}
+            log(f"{name}: {flops / 1e9:.3f} GFLOP, {b * h * n * n / 1e6:.2f} M "
+                f"exponentials, {nbytes / 1e6:.2f} MB: bound {res['bound_ms']:.5f} "
                 f"ms ({res['bound_by']})")
-            timed[shape] = res
-    # The line's numbers are DA-V2-Small's at one image; classic DPT-Large's ride along.
-    return {**timed[(1, 6, 1370, 64)], "also": [timed[(1, 16, 577, 64)]]}
+            timed[(shape, dtype)] = res
+    # The line's numbers are DA-V2-Small's at one image; classic DPT-Large's
+    # and the other head dims ride along.
+    main = timed.pop(((1, 6, 1370, 64), torch.bfloat16))
+    return {**main, "also": list(timed.values())}
 
 
 def _knn_taps(hh: int, ww: int, r: int = 4) -> int:
@@ -379,7 +399,7 @@ def knn_cascade_share(pts: torch.Tensor) -> dict:
             "warp": warps.item() / (b * (hpad // 4) * (wpad // 8) * taps)}
 
 
-def _k2_check(name: str, pts: torch.Tensor) -> float:
+def _k2_check(name: str, pts: torch.Tensor, k: int = 20, window: int = 4) -> float:
     """K2 against its plain version, bit for bit; returns the max abs error
     (0) and logs where the means are 0."""
     from image_to_pointcloud_tpu_torch.ops.outlier import (
@@ -387,9 +407,9 @@ def _k2_check(name: str, pts: torch.Tensor) -> float:
         grid_knn_mean_distances_plain,
     )
 
-    o = grid_knn_mean_distances_cuda(pts)
+    o = grid_knn_mean_distances_cuda(pts, k=k, window=window)
     torch.cuda.synchronize()
-    ref = grid_knn_mean_distances_plain(pts)
+    ref = grid_knn_mean_distances_plain(pts, k=k, window=window)
     torch.cuda.synchronize()
     same = torch.equal(o, ref)
     zeros = int((o == 0).sum())
@@ -400,6 +420,50 @@ def _k2_check(name: str, pts: torch.Tensor) -> float:
     if not same:
         raise AssertionError(f"K2 disagrees with its plain version: {name} {tuple(pts.shape)}")
     return err
+
+
+# K2 at (k, window) pairs other than the served (20, 4): the JAX tests'
+# (10, 7), the limits (64, 8) and the smallest (1, 1).
+K2_PAIRS = [(10, 7), (64, 8), (1, 1)]
+
+
+def _k2_pairs(gen: torch.Generator, surface: torch.Tensor) -> list[dict]:
+    """The general kernel, bit for bit against the plain version at each
+    pair on the cube, the surface and a NaN/inf grid; (10, 7) timed on
+    both 259² inputs beside its bound."""
+    from image_to_pointcloud_tpu_torch.ops.outlier import (
+        grid_knn_mean_distances_cuda,
+        grid_knn_mean_distances_plain,
+    )
+
+    cube = knn_cube(gen, (1, 259, 259, 3))
+    naninf = knn_cube(gen, (1, 150, 200, 3))
+    for (i, j), val in [((5, 7), float("nan")), ((70, 120), float("inf")),
+                        ((149, 199), float("-inf")), ((0, 0), float("nan"))]:
+        naninf[0, i, j, (i + j) % 3] = val
+    out = []
+    for k, r in K2_PAIRS:
+        for name, pts in [("random cube", cube), ("synthetic surface", surface),
+                          ("NaN/inf", naninf)]:
+            err = _k2_check(f"k={k} window={r} {name}", pts, k=k, window=r)
+            res = {"k": k, "window": r, "input": name, "shape": list(pts.shape),
+                   "max_abs_err": err}
+            if (k, r) == (10, 7) and name != "NaN/inf":
+                b, hh, ww, _ = pts.shape
+                # Operations as the served row counts them: per in-grid tap
+                # 3 sub, 3 mul, 2 add and the compare with the list's last
+                # entry; ~5 a list entry for the mean of the square roots.
+                ops = b * (_knn_taps(hh, ww, r) * 9 + hh * ww * 5 * k)
+                nbytes = b * hh * ww * (12 + 4)
+                res.update(_timed_kernel(
+                    f"K2 k={k} window={r} {name} {tuple(pts.shape)}",
+                    lambda: grid_knn_mean_distances_cuda(pts, k=k, window=r),
+                    lambda: grid_knn_mean_distances_plain(pts, k=k, window=r)))
+                res.update(bound(nbytes, ops, F32_FLOP_S))
+                log(f"K2 k={k} window={r} {name}: {ops / 1e6:.1f} M ops, {nbytes / 1e6:.2f} MB: "
+                    f"bound {res['bound_ms']:.5f} ms ({res['bound_by']})")
+            out.append(res)
+    return out
 
 
 def phase_k2() -> dict:
@@ -452,8 +516,10 @@ def phase_k2() -> dict:
             f"full-cascade bound {res['bound_full_cascade_ms']:.5f} ms")
         timed[name] = res
     # The line's numbers are the random cube's, the input every PR has timed
-    # K2 on (its worst case); the synthetic depth surface rides along.
-    return {**timed["random cube"], "also": [timed["synthetic surface"]]}
+    # K2 on (its worst case); the synthetic depth surface and the other
+    # (k, window) pairs ride along.
+    return {**timed["random cube"],
+            "also": [timed["synthetic surface"], *_k2_pairs(gen, inputs["synthetic surface"])]}
 
 
 def k3_inputs(gen: torch.Generator, b: int, h: int, w: int, u8: bool):
@@ -743,13 +809,20 @@ def _slice_card_vs_cpu(family: str, cpu_model, gpu_model, target) -> None:
         cpu_runs = {q: DepthPipeline(cpu_model, model_target=target, quantized_transfer=q).run(
             img, depth_scale=15.0) for q in (False, True)}
         codec_rmse = _rmse(cpu_runs[True], cpu_runs[False])
+        gpu_runs = {q: DepthPipeline(gpu_model, model_target=target, quantized_transfer=q).run(
+            img, depth_scale=15.0) for q in (False, True)}
+        f32_rmse = _rmse(cpu_runs[False], gpu_runs[False])
+        # Beside each result, which side a failure moved: the host CPU's
+        # kernels (the CPU reference and the codec run there), the f32
+        # return's error, and the codec's own error on the CPU.
+        context = (f"; cpu capability {torch.backends.cpu.get_cpu_capability()}, f32 return "
+                   f"rmse {f32_rmse:.3e}, codec's own rmse on the CPU {codec_rmse:.3e}")
         for quantized, cpu in cpu_runs.items():
-            gpu = DepthPipeline(gpu_model, model_target=target, quantized_transfer=quantized).run(
-                img, depth_scale=15.0)
+            gpu = gpu_runs[quantized]
             kc, kg = cpu.packed[6] > 0.5, gpu.packed[6] > 0.5
             agree = float((kc == kg).mean())
             rmse = _rmse(cpu, gpu)
-            tol, codec = SLICE_RMSE, ""
+            tol = SLICE_RMSE
             if family == "ZoeDepth int8" or (family == "ZoeDepth" and quantized):
                 # The random-init ZoeDepth map spans only ±8 % of its mean
                 # (the others span their whole range), so the depth
@@ -760,14 +833,13 @@ def _slice_card_vs_cpu(family: str, cpu_model, gpu_model, target) -> None:
                 # token's max). Held to the bundle codec's own error on
                 # this map instead, the precision a served request has.
                 tol = max(SLICE_RMSE, codec_rmse)
-                codec = f", the codec's own rmse on the CPU {codec_rmse:.3e}"
             colors = bool(np.array_equal(cpu.packed[3:6], gpu.packed[3:6]))
             prev = int(np.abs(cpu.depth_preview_gray.astype(int)
                               - gpu.depth_preview_gray.astype(int)).max())
             log(f"{family} slice card vs CPU, {'quantized bundle' if quantized else 'f32 return'}: "
                 f"points {gpu.raw_point_count}/{cpu.raw_point_count}, colors exact {colors}, "
                 f"keep agree {agree:.5f} (>= {SLICE_KEEP_AGREE}), rmse {rmse:.3e} "
-                f"(< {tol:.3e}{codec}), preview max diff {prev}")
+                f"(< {tol:.3e}), preview max diff {prev}{context}")
             if not (gpu.raw_point_count == cpu.raw_point_count and colors
                     and agree >= SLICE_KEEP_AGREE and rmse < tol and prev <= 1):
                 raise AssertionError(f"{family} slice on the card disagrees with the CPU")

@@ -108,7 +108,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, i, i, i, i, ctypes.POINTER(ll), ctypes.c_float, i, p,
     ]
     lib.ipc_flash_attention.restype = i
-    lib.ipc_grid_knn.argtypes = [p, p, i, i, i, ll, ll, ll, p]
+    lib.ipc_grid_knn.argtypes = [p, p, i, i, i, i, i, ll, ll, ll, p]
     lib.ipc_grid_knn.restype = i
     f = ctypes.c_float
     lib.ipc_unproject.argtypes = [

@@ -5,7 +5,8 @@ Counterpart of ``image_to_pointcloud_tpu/models/attention.py``. The
 kernels (``csrc/flash_attention.cu``: bf16 on the tensor cores with
 ``wgmma``, f32 on the FP32 cores) replace the Pallas TPU kernel
 ``flash_attention``; :func:`attention_plain` is ``_attention_xla``'s
-math. The choice follows the tensor's device: a CUDA tensor launches the
+math. Head dims up to 128 (:data:`MAX_HEAD_DIM`), as the Pallas kernel
+takes any. The choice follows the tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version; a caller that
 asks for no flash (``use_flash=False``, the backbones'
 ``use_flash_attention``, as the trainer builds them) gets the plain
@@ -22,12 +23,15 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from image_to_pointcloud_tpu_torch import cuda
 
-__all__ = ["attention_plain", "flash_attention", "multi_head_attention"]
+__all__ = ["MAX_HEAD_DIM", "attention_plain", "flash_attention", "multi_head_attention"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's largest padded head dim (csrc/flash_attention.cu: 32, 64, 128).
+MAX_HEAD_DIM = 128
 
 
 def attention_plain(
@@ -51,15 +55,18 @@ def attention_plain(
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> torch.Tensor:
-    """Flash attention over (B, H, N, 64) CUDA tensors, f32 or bf16.
+    """Flash attention over (B, H, N, D) CUDA tensors, f32 or bf16, D <= 128.
 
     The head dim must be contiguous; batch, head and sequence strides are
-    free, so head-split views of (B, N, H·64) projections are read in
-    place (bf16: every pointer and stride a multiple of 16 bytes). The
-    output has the input dtype and shape, laid out as (B, N, H, 64)
-    underneath so merging the heads back is free. bf16 runs the
-    tensor-core kernel, f32 the SIMT one. Forward only: under grad mode,
-    inputs that require grad raise.
+    free, so head-split views of (B, N, H·D) projections are read in
+    place (bf16: every pointer and stride a multiple of 16 bytes). A bf16
+    head dim that is not a multiple of 8 (the kernel copies 16-byte rows
+    with ``cp.async``) is zero-padded into contiguous copies first; the
+    scale stays 1/√D of the true D. The output has the input dtype and
+    shape, laid out as (B, N, H, D) underneath so merging the heads back
+    is free. bf16 runs the tensor-core kernel, f32 the SIMT one. D above
+    :data:`MAX_HEAD_DIM` raises. Forward only: under grad mode, inputs
+    that require grad raise.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -73,16 +80,22 @@ def flash_attention(
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: shapes {q.shape}, {k.shape}, {v.shape}")
     b, h, n, d = q.shape
-    if d != 64:
-        raise ValueError(f"flash_attention: head dim {d} (the kernel takes 64)")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: head dim {d} is outside the kernel's limit 1 <= D <= {MAX_HEAD_DIM}"
+        )
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
+    dp = d
+    if q.dtype == torch.bfloat16 and d % 8:
+        dp = -(-d // 8) * 8
+        q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
     if q.dtype == torch.bfloat16 and not all(
         t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)
     ):
         # The tensor-core kernel copies 16-byte rows with cp.async.
         raise ValueError("flash_attention: bf16 needs 16-byte aligned pointers and strides")
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = torch.empty((b, n, h, dp), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, out) for i in range(3))
     )
@@ -90,12 +103,12 @@ def flash_attention(
     with torch.cuda.device(q.device):
         err = lib.ipc_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, n, d, strides, 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
+            b, h, n, dp, strides, 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     cuda.check(err, cuda.FLASH_ATTENTION)
     cuda.FLASH_ATTENTION.count()
-    return out
+    return out if dp == d else out[..., :d]
 
 
 def multi_head_attention(

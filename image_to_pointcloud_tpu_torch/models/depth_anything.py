@@ -33,6 +33,7 @@ __all__ = [
     "ModelConfig",
     "build_model",
     "init_weights",
+    "normalize_pixels",
     "preset",
 ]
 
@@ -153,6 +154,13 @@ class DepthAnything(nn.Module):
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         return self.neck(self.backbone(pixels)).float()
+
+
+def normalize_pixels(rgb01: torch.Tensor) -> torch.Tensor:
+    """ImageNet mean/std normalization of (…, 3) RGB in [0, 1]."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=rgb01.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=rgb01.device)
+    return (rgb01 - mean) / std
 
 
 def build_model(cfg: ModelConfig) -> nn.Module:

@@ -13,6 +13,8 @@ with it:
 The JAX package finds its order statistics by bisecting float bit
 patterns, a TPU trick to avoid sorting; on the GPU a sort is cheap, and
 the order statistics it yields are the same exact values.
+:func:`order_statistics` is the JAX package's public function of that
+name, with its bits: it sorts the same order-preserving integer keys.
 """
 
 from __future__ import annotations
@@ -21,7 +23,25 @@ import math
 
 import torch
 
-__all__ = ["normalize_depth"]
+__all__ = ["normalize_depth", "order_statistics"]
+
+
+def _ordered_key(bits: torch.Tensor) -> torch.Tensor:
+    """float32 bits (as int32) ↔ int32 keys in IEEE-754 total order: a
+    negative float's magnitude bits are flipped, so -0.0 sorts just below
+    +0.0 and every NaN beyond ±inf. Its own inverse."""
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def order_statistics(x: torch.Tensor, ks) -> torch.Tensor:
+    """Exact k-th smallest values (0-based ranks ``ks``) of 1-D ``x``, in
+    float32, bit for bit the JAX package's: that bisects the ordered keys
+    of the floats' bits, and this sorts the same keys, so ties of -0.0
+    and +0.0 keep their sign (a ``torch.sort`` of the floats would tie
+    them)."""
+    keys = _ordered_key(x.float().reshape(-1).view(torch.int32))
+    ranks = torch.as_tensor(ks, dtype=torch.long, device=keys.device)
+    return _ordered_key(torch.sort(keys).values[ranks]).view(torch.float32)
 
 
 def normalize_depth(depth: torch.Tensor, invert: bool = True) -> torch.Tensor:

@@ -3,13 +3,14 @@ clouds as a hand-written CUDA kernel and its plain PyTorch version, the
 exact O(N²) kNN, and Open3D's threshold rule.
 
 Counterpart of ``image_to_pointcloud_tpu/ops/outlier.py`` (the scan form
-``grid_knn_mean_distances``, the exact ``knn_mean_distances`` and
-``statistical_outlier_mask``, ``outlier_keep_from_means``) and
-``ops/outlier_pallas.py`` (the Pallas kernel). The kernel
-(``csrc/grid_knn.cu``) runs for CUDA tensors; CPU tensors take
-:func:`grid_knn_mean_distances_plain`, the scan form written as a loop
-over the window offsets. The exact search is plain torch on every device,
-as it is jnp in the JAX package.
+``grid_knn_mean_distances``, ``grid_statistical_outlier_mask``, the exact
+``knn_mean_distances`` and ``statistical_outlier_mask``,
+``outlier_keep_from_means``) and ``ops/outlier_pallas.py`` (the Pallas
+kernel). The kernel (``csrc/grid_knn.cu``) runs for CUDA tensors, at any
+k up to :data:`MAX_K` and window up to :data:`MAX_WINDOW`; CPU tensors
+take :func:`grid_knn_mean_distances_plain`, the scan form written as a
+loop over the window offsets. The exact search is plain torch on every
+device, as it is jnp in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,9 +20,12 @@ import torch
 from image_to_pointcloud_tpu_torch import cuda
 
 __all__ = [
+    "MAX_K",
+    "MAX_WINDOW",
     "grid_knn_mean_distances",
     "grid_knn_mean_distances_cuda",
     "grid_knn_mean_distances_plain",
+    "grid_statistical_outlier_mask",
     "knn_mean_distances",
     "outlier_keep_from_means",
     "statistical_outlier_mask",
@@ -29,6 +33,10 @@ __all__ = [
 
 _BIG = 1e30
 _SENTINEL = 1e9
+# The kernel's limits (csrc/grid_knn.cu): its list holds at most 64
+# entries, its halo tile a window of at most 8.
+MAX_K = 64
+MAX_WINDOW = 8
 
 
 def outlier_keep_from_means(
@@ -52,12 +60,15 @@ def grid_knn_mean_distances_plain(
 ) -> torch.Tensor:
     """(B, hh, ww, 3) grid points → (B, hh·ww) mean distance to the k
     nearest neighbours inside the (2·window+1)² grid window (self
-    included at 0). Sentinel-padded borders; d² > 1e17 is no neighbour;
-    the running top-k is an insertion cascade, one window offset at a
-    time, exactly as the scan form. A NaN distance (a NaN coordinate in
-    the window, or an infinite centre) propagates through ``minimum`` and
-    ``maximum`` into the whole list, so nothing is found and that point's
-    mean is 0, as in the JAX package."""
+    included at 0); an unbatched (hh, ww, 3) gives (hh·ww,).
+    Sentinel-padded borders; d² > 1e17 is no neighbour; the running top-k
+    is an insertion cascade, one window offset at a time, exactly as the
+    scan form. A NaN distance (a NaN coordinate in the window, or an
+    infinite centre) propagates through ``minimum`` and ``maximum`` into
+    the whole list, so nothing is found and that point's mean is 0, as in
+    the JAX package."""
+    if points_grid.dim() == 3:
+        return grid_knn_mean_distances_plain(points_grid[None], k=k, window=window)[0]
     p = points_grid.float()
     bsz, hh, ww, _ = p.shape
     r = window
@@ -86,22 +97,34 @@ def grid_knn_mean_distances_plain(
     return (acc / cnt.clamp_min(1.0)).reshape(bsz, hh * ww)
 
 
-def grid_knn_mean_distances_cuda(points_grid: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: (B, hh, ww, 3) f32 → (B, hh·ww), k=20, window=4.
+def grid_knn_mean_distances_cuda(
+    points_grid: torch.Tensor, *, k: int = 20, window: int = 4
+) -> torch.Tensor:
+    """The CUDA kernel: (B, hh, ww, 3) f32 → (B, hh·ww), or (hh, ww, 3) →
+    (hh·ww,); 1 <= k <= :data:`MAX_K`, 1 <= window <= :data:`MAX_WINDOW`.
 
-    The input may be any strided view whose row stride is ``ww`` point
-    strides — e.g. ``packed[:, :3].transpose(1, 2).reshape(B, hh, ww, 3)``
-    of the planar (B, 8, N) point buffer, which the kernel reads in place.
-    Bit-identical to :func:`grid_knn_mean_distances_plain`, NaN points
-    included: the kernel visits the taps in another order (the sorted
-    top-20 does not depend on it) and writes 0 wherever a NaN distance
-    makes the plain version's mean 0.
+    (k, window) = (20, 4), the served pair, runs the kernel redesigned for
+    it; any other pair runs the general kernel beside it. The input may be
+    any strided view whose row stride is ``ww`` point strides — e.g.
+    ``packed[:, :3].transpose(1, 2).reshape(B, hh, ww, 3)`` of the planar
+    (B, 8, N) point buffer, which the kernel reads in place. Bit-identical
+    to :func:`grid_knn_mean_distances_plain`, NaN points included: the
+    served kernel visits the taps in another order (the sorted top-20 does
+    not depend on it), and both write 0 wherever a NaN distance makes the
+    plain version's mean 0.
     """
     if not points_grid.is_cuda or points_grid.dtype != torch.float32:
         raise ValueError(
             f"grid_knn: needs a CUDA float32 tensor, got {points_grid.dtype} "
             f"on {points_grid.device}"
         )
+    if not (1 <= k <= MAX_K and 1 <= window <= MAX_WINDOW):
+        raise ValueError(
+            f"grid_knn: k={k}, window={window} is outside the kernel's limits "
+            f"1 <= k <= {MAX_K}, 1 <= window <= {MAX_WINDOW}"
+        )
+    if points_grid.dim() == 3:
+        return grid_knn_mean_distances_cuda(points_grid[None], k=k, window=window)[0]
     if points_grid.dim() != 4 or points_grid.shape[-1] != 3:
         raise ValueError(f"grid_knn: shape {tuple(points_grid.shape)} is not (B, hh, ww, 3)")
     bsz, hh, ww, _ = points_grid.shape
@@ -112,7 +135,7 @@ def grid_knn_mean_distances_cuda(points_grid: torch.Tensor) -> torch.Tensor:
     lib = cuda.library()
     with torch.cuda.device(points_grid.device):
         err = lib.ipc_grid_knn(
-            points_grid.data_ptr(), out.data_ptr(), bsz, hh, ww, sb, sp, sc,
+            points_grid.data_ptr(), out.data_ptr(), bsz, hh, ww, k, window, sb, sp, sc,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda.check(err, cuda.GRID_KNN)
@@ -123,15 +146,25 @@ def grid_knn_mean_distances_cuda(points_grid: torch.Tensor) -> torch.Tensor:
 def grid_knn_mean_distances(
     points_grid: torch.Tensor, *, k: int = 20, window: int = 4
 ) -> torch.Tensor:
-    """(B, hh, ww, 3) → (B, hh·ww) mean kNN distances; the kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    """(B, hh, ww, 3) → (B, hh·ww), or (hh, ww, 3) → (hh·ww,), mean kNN
+    distances; the kernel on a CUDA tensor (which raises outside its
+    limits), the plain version on a CPU tensor."""
     if points_grid.device.type == "cuda":
-        if (k, window) != (20, 4):
-            raise ValueError(f"grid_knn kernel is built for k=20, window=4, not {k}, {window}")
-        return grid_knn_mean_distances_cuda(points_grid)
+        return grid_knn_mean_distances_cuda(points_grid, k=k, window=window)
     if points_grid.device.type == "cpu":
         return grid_knn_mean_distances_plain(points_grid, k=k, window=window)
     raise ValueError(f"grid_knn: unsupported device {points_grid.device}")
+
+
+def grid_statistical_outlier_mask(
+    points_grid: torch.Tensor, *, k: int = 20, std_ratio: float = 2.0, window: int = 4
+) -> torch.Tensor:
+    """Open3D-semantics keep mask over the windowed grid search: (hh, ww,
+    3) → (hh·ww,) (row-major grid order), and a leading batch gives a mask
+    per row. The tensor's device picks K2 or the plain version, as the
+    JAX package's ``use_pallas`` picks its search."""
+    means = grid_knn_mean_distances(points_grid, k=k, window=window)
+    return outlier_keep_from_means(means, means > 0.0, std_ratio)
 
 
 def knn_mean_distances(

@@ -17,7 +17,15 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["resample_matrix", "resize_batched", "resize_planes"]
+__all__ = [
+    "resample_matrix",
+    "resize2d",
+    "resize_area",
+    "resize_batched",
+    "resize_bicubic_pil",
+    "resize_linear",
+    "resize_planes",
+]
 
 
 def _weights_area(in_size: int, out_size: int) -> np.ndarray:
@@ -168,3 +176,27 @@ def resize_batched(
 ) -> torch.Tensor:
     """Resize a (B, H, W, C) batch with the given filter."""
     return resize_planes(x.permute(0, 3, 1, 2), out_hw, method).permute(0, 2, 3, 1)
+
+
+def resize2d(img: torch.Tensor, out_hw: tuple[int, int], method: str) -> torch.Tensor:
+    """Resize an (H, W) or (H, W, C) image with the given filter, in
+    float32."""
+    x = img.float()
+    if x.dim() == 2:
+        return resize_planes(x, out_hw, method)
+    return resize_batched(x[None], out_hw, method)[0]
+
+
+def resize_area(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """cv2.INTER_AREA resize (reference backend/app.py:444)."""
+    return resize2d(img, out_hw, "area")
+
+
+def resize_linear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """cv2.INTER_LINEAR resize (reference backend/app.py:188)."""
+    return resize2d(img, out_hw, "linear")
+
+
+def resize_bicubic_pil(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """PIL BICUBIC resize (HF processor semantics, backend/app.py:109)."""
+    return resize2d(img, out_hw, "bicubic_pil")

@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from image_to_pointcloud_tpu_torch.ops.colormap import PLASMA_RGB
+from image_to_pointcloud_tpu_torch.ops.colormap import PLASMA_RGB, apply_colormap
 from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth
 from image_to_pointcloud_tpu_torch.ops.gaussian import gaussian_blur
 from image_to_pointcloud_tpu_torch.ops.jpeg import (
@@ -60,8 +60,7 @@ from image_to_pointcloud_tpu_torch.ops.jpeg_sparse import (
     sparse_row_sections,
 )
 from image_to_pointcloud_tpu_torch.ops.outlier import (
-    grid_knn_mean_distances,
-    outlier_keep_from_means,
+    grid_statistical_outlier_mask,
     statistical_outlier_mask,
 )
 from image_to_pointcloud_tpu_torch.ops.resize import resize_batched, resize_planes
@@ -95,6 +94,7 @@ __all__ = [
     "PipelineResult",
     "default_quantized_transfer",
     "demo_depth_map_graph",
+    "depth_to_packed_points",
     "dummy_point_cloud_graph",
     "plan_jpeg_input",
     "plan_sparse_batch",
@@ -372,6 +372,64 @@ def plan_sparse_batch(jpegs: "list[JpegInput]") -> "tuple[int, int] | None":
     return None
 
 
+def _points_depth(depth: torch.Tensor, h: int, w: int, opts: PipelineOptions) -> torch.Tensor:
+    """(B, mh, mw) model depth → the (B, h, w) normalized, optionally
+    blurred depth the points are made of."""
+    dn = _normalize_each(resize_planes(depth, (h, w), "linear"), opts.invert_depth)
+    if opts.smooth_depth:
+        dn = gaussian_blur(dn, _smooth_ksize(opts.smooth_ksize))
+    return dn
+
+
+def _packed_points(
+    dn: torch.Tensor,
+    img: torch.Tensor,
+    depth_scale: "torch.Tensor | float",
+    *,
+    opts: PipelineOptions,
+    h: int,
+    w: int,
+    step: int,
+) -> torch.Tensor:
+    """(B, h, w) normalized depth + (B, h, w, 3) RGB → (B, 8, N) packed
+    points (K3 on CUDA), row 6 the outlier keep mask when ``opts.refine``:
+    the exact kNN, or the windowed grid search (K2 on CUDA, reading rows
+    0-2 of the planar buffer in place)."""
+    packed = unproject(
+        dn, img, depth_scale=depth_scale, step=step, h=h, w=w, fov_deg=opts.fov,
+    )
+    if opts.refine and opts.exact_outlier:
+        keep = torch.stack([statistical_outlier_mask(pk[:3].T) for pk in packed])
+        packed[:, 6] = keep.float()  # in place: packed is this call's own
+    elif opts.refine:
+        hh, ww = -(-h // step), -(-w // step)
+        grids = packed[:, :3].transpose(1, 2).reshape(-1, hh, ww, 3)
+        packed[:, 6] = grid_statistical_outlier_mask(grids).float()
+    return packed
+
+
+def depth_to_packed_points(
+    depth: torch.Tensor,
+    image_rgb: torch.Tensor,
+    depth_scale: "torch.Tensor | float",
+    *,
+    opts: PipelineOptions,
+    h: int,
+    w: int,
+    step: int,
+) -> torch.Tensor:
+    """Model-resolution (mh, mw) depth + working-size (h, w, 3) RGB →
+    packed (8, N) points: the single-image graph of the reference's resize
+    → normalize → blur → per-pixel loop → outlier removal chain
+    (backend/app.py:174-269), on the tensors' device; the batched
+    pipeline runs the same two steps. On CUDA it launches K3 once, and K2
+    once unless ``opts.exact_outlier``."""
+    dn = _points_depth(depth[None], h, w, opts)
+    return _packed_points(
+        dn, image_rgb[None], depth_scale, opts=opts, h=h, w=w, step=step
+    )[0]
+
+
 class DepthPipeline:
     """The depth→point-cloud pipeline over one model of any family on one
     device (the model's own device and dtype: bf16 on CUDA for serving,
@@ -544,9 +602,7 @@ class DepthPipeline:
             depth = depth[:, pad_h : hp - pad_h, pad_w : wp - pad_w]  # (B, h, w)
 
         # Point path: upscale to working size, re-normalize, [blur].
-        dn_all = _normalize_each(resize_planes(depth, (h, w), "linear"), opts.invert_depth)
-        if opts.smooth_depth:
-            dn_all = gaussian_blur(dn_all, _smooth_ksize(opts.smooth_ksize))
+        dn_all = _points_depth(depth, h, w, opts)
 
         # Preview: normalized at model resolution (shared with the point
         # path when the sizes coincide), as gray u8; the host applies the
@@ -560,25 +616,10 @@ class DepthPipeline:
                 dn_prev = _normalize_each(depth, opts.invert_depth)
             prev = (dn_prev * 255.0).to(torch.uint8)
             if (pv_h, pv_w) != (dmh, dmw):
-                lut = torch.from_numpy(PLASMA_RGB).to(prev.device)
-                rgb = resize_batched(lut[prev.long()].float(), (pv_h, pv_w), "area")
+                rgb = resize_batched(apply_colormap(prev).float(), (pv_h, pv_w), "area")
                 prev = rgb.round().clamp(0, 255).to(torch.uint8)
 
-        packed = unproject(
-            dn_all, img, depth_scale=depth_scales, step=step, h=h, w=w,
-            fov_deg=opts.fov,
-        )
-        if opts.refine and opts.exact_outlier:
-            keep = torch.stack([statistical_outlier_mask(pk[:3].T) for pk in packed])
-            packed[:, 6] = keep.float()  # in place: packed is this call's own
-        elif opts.refine:
-            hh, ww = -(-h // step), -(-w // step)
-            # A strided view of rows 0-2: the CUDA kernel reads the planar
-            # buffer in place.
-            grids = packed[:, :3].transpose(1, 2).reshape(-1, hh, ww, 3)
-            means = grid_knn_mean_distances(grids)
-            keep = outlier_keep_from_means(means, means > 0.0, 2.0)
-            packed[:, 6] = keep.float()
+        packed = _packed_points(dn_all, img, depth_scales, opts=opts, h=h, w=w, step=step)
         if not self.quantized_transfer:
             return packed, prev
         rgb_rides = (not jpeg and (h, w) != (h0, w0)) or (jpeg and not host_colors)

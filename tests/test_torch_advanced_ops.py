@@ -24,6 +24,7 @@ Tolerances:
 
 from __future__ import annotations
 
+import importlib
 import sys
 from pathlib import Path
 
@@ -33,9 +34,12 @@ import pytest
 import torch
 
 from image_to_pointcloud_tpu_torch.ops import outlier as tout
-from image_to_pointcloud_tpu_torch.ops import unproject as tunp
 from image_to_pointcloud_tpu_torch.ops.voxel import voxel_downsample
 from image_to_pointcloud_tpu_torch.parallel import tiling as ttile
+
+# The module, not the package-level ``unproject`` function of the same
+# name that ``ops/__init__.py`` re-exports, as the JAX package's does.
+tunp = importlib.import_module("image_to_pointcloud_tpu_torch.ops.unproject")
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -157,7 +161,7 @@ def test_exact_outlier_pipeline_matches_jax(rng, monkeypatch):
     def no_grid(*_a, **_k):
         raise AssertionError("the exact path ran the grid search")
 
-    monkeypatch.setattr(tgraph, "grid_knn_mean_distances", no_grid)
+    monkeypatch.setattr(tgraph, "grid_statistical_outlier_mask", no_grid)
     b = tgraph.DepthPipeline(model, model_target=56).run(
         img, depth_scale=15.0, options=tgraph.PipelineOptions(exact_outlier=True))
     np.testing.assert_array_equal(b.packed[3:6], a.packed[3:6])

@@ -1,0 +1,54 @@
+"""Device times of the served kernel instances, for an A/B of two checkouts
+on one card.
+
+Times K1 (``flash_attention``) at DA-V2-Small's (1, 6, 1370, 64) and
+classic DPT-Large's (1, 16, 577, 64) in bf16, and K2 (the grid kNN at k =
+20, window = 4) on the 259² random cube, as ``chip_smoke.py`` times them
+(a CUDA graph of 20 calls, the median of 5 replays, per call), and prints
+one JSON line with the card's name and power limit. The port is imported
+from ``PYTHONPATH`` first, so one copy of this script times any checkout:
+
+    PYTHONPATH=/path/to/checkout python3 tools/kernel_times.py
+
+Run two checkouts in turns (A, B, B, A) in one run on one card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+# After PYTHONPATH, so that the checkout under test supplies the port.
+sys.path.append(str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import device_time_ms, knn_cube  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: CUDA is not available")
+    import image_to_pointcloud_tpu_torch as port
+    from image_to_pointcloud_tpu_torch.models.attention import flash_attention
+    from image_to_pointcloud_tpu_torch.ops.outlier import grid_knn_mean_distances_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"port": str(Path(port.__file__).parent)}
+    for shape in [(1, 6, 1370, 64), (1, 16, 577, 64)]:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
+        out[f"K1 {shape} bf16 ms"] = device_time_ms(lambda: flash_attention(q, k, v))
+    pts = knn_cube(gen, (1, 259, 259, 3))
+    out["K2 cube (1, 259, 259, 3) ms"] = device_time_ms(lambda: grid_knn_mean_distances_cuda(pts))
+    out["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
