@@ -7,13 +7,18 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 3. K1 flash attention vs its plain version: bf16 (the tensor-core
    kernel) at DA-V2-Small's (1, 6, 1370, 64) and (2, 6, 1370, 64), at
    classic DPT-Large's (1, 16, 577, 64) and at a ragged (1, 3, 65, 64);
-   f32 (the SIMT kernel) at (2, 6, 1370, 64); at the head dims no preset
-   serves, in bf16 and f32: (1, 6, 1370, 32) and (1, 4, 1370, 128) (the
-   kD = 32 and 128 instances) and (1, 6, 1370, 40) and (1, 8, 577, 80)
-   (D below its instance's width). Timed at the two serving shapes and
-   at each of those: device time, host-inclusive time, the plain
-   version's, and ``scaled_dot_product_attention``'s on the same tensors
-   (the yardstick, never called by the port), beside the bound.
+   f32 (the 3xTF32 kernel) at (2, 6, 1370, 64) and at the f32 serving
+   shapes (1, 6, 1370, 64) and (1, 16, 577, 64); at the head dims no
+   preset serves, in bf16 and f32: (1, 6, 1370, 32) and (1, 4, 1370, 128)
+   (the kD = 32 and 128 instances), (1, 6, 1370, 40) and (1, 8, 577, 80)
+   (D below its instance's width), and above 128 (O in 128-column panels)
+   (1, 4, 577, 160), (1, 4, 1370, 192), (1, 2, 1370, 256) and (1, 2, 300,
+   320). Timed at the serving shapes and at each of those: device time,
+   host-inclusive time, the plain version's, and
+   ``scaled_dot_product_attention``'s on the same tensors (the yardstick,
+   never called by the port), beside the bound of the design that runs
+   (bf16 tensor cores, 3xTF32, or one TF32 product for bf16 above D =
+   128) and, for f32, the FP32-core bound.
 4. K2 grid-kNN vs its plain version, bit for bit, on two inputs at
    (1, 259, 259, 3) — 518² at medium density, one request: points
    uniform in a cube (the worst case: grid position says nothing about
@@ -28,10 +33,12 @@ Phases (any failure exits non-zero, and the result lines are not printed):
    and the reference's full cascade on every tap), with the share of the
    61 taps after the first 20 that insert into the top-20 list, per lane
    and per 8×4 warp (replayed in plain torch). The general kernel at
-   (k, window) = (10, 7), (64, 8) and (1, 1), bit for bit on the 259²
-   cube, the surface and the NaN/inf grid; (10, 7) timed on both 259²
-   inputs beside its bound. The kernels line reports the cube at (20,
-   4), as every PR has; the rest rides along.
+   (k, window) = (10, 7), (64, 8) and (1, 1), with taps from global
+   memory at (20, 12) and (64, 16), and the sorted kernel (k_eff > 64) at
+   (100, 5), (300, 8) and (500, 12), bit for bit on the 259² cube, the
+   surface and the NaN/inf grid; (10, 7) timed on both 259² inputs and
+   the five new pairs on the cube, beside their bounds. The kernels line
+   reports the cube at (20, 4), as every PR has; the rest rides along.
 5. K3 unproject vs its plain version, bit for bit, with u8 and f32
    images: (1, 518, 518) step 2 (one request), batch 2, odd N at steps
    1, 2 and 4 (output rows starting at every residue mod 4), even N, and
@@ -61,6 +68,14 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     output within ``FULL_WIDTH_TOL`` max-normalized, the card's
     normalized depth not flat (p98 - p2 > 0) and more than one z value in
     the points; the depth normalization card vs CPU bit for bit.
+11b. (after 12) f32 serving: ``ModelManager("cuda", use_bf16=False)``
+    for ``depth-anything-v2`` and ``dpt-large``, the TF32 flags at
+    torch's defaults: each stage against phase 11's CPU stages, the
+    head's raw output within ``F32_FULL_WIDTH_TOL`` max-normalized, the
+    flags restored after the forward; then two 518² PNG requests of each
+    (and a 400×300 one of DA-V2) through the v1 app, read on their own:
+    K1 (the f32 kernel) exactly 12 / 24 times a request, K2 and K3 once,
+    PLYs not flat.
 12. the v1 server in this process, bf16, each main path read on its own
     (the launch counters zeroed just before and read just after):
     Depth-Anything-V2-Small with 518² and 400×300 PNG → PLY requests
@@ -142,8 +157,10 @@ between launches; the median of 5 replays, per call); ``host-inclusive``
 is 50 back-to-back calls between two CUDA events, wrapper and launch
 path included. A bound is the larger of the bytes the call must move
 (inputs read once, outputs written once) over 3.35 TB/s and its
-operations over the H100's peak for their type (989 TFLOP/s bf16 on the
-tensor cores, 67 TFLOP/s f32 on the FP32 cores).
+operations over the H100's peak for the design that runs them (989
+TFLOP/s bf16 on the tensor cores; K1 in f32 3xTF32, three products at
+494.7 TFLOP/s TF32 for each f32 one, with the 67 TFLOP/s FP32-core bound
+beside it; K2's f32 operations at 67 TFLOP/s on the FP32 cores).
 
 It prints the per-kernel JSON line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. It needs
@@ -273,6 +290,23 @@ def _timed_kernel(name: str, kernel, plain, library=None) -> dict:
 # K1 at head dims other than the served 64 (no preset serves one): the
 # kD = 32 and 128 instances, and D below its instance's width (40, 80).
 K1_HEAD_DIM_SHAPES = [(1, 6, 1370, 32), (1, 6, 1370, 40), (1, 8, 577, 80), (1, 4, 1370, 128)]
+# Above D = 128: O in 128-column panels, the logits recomputed for each.
+K1_WIDE_SHAPES = [(1, 4, 577, 160), (1, 4, 1370, 192), (1, 2, 1370, 256), (1, 2, 300, 320)]
+# The f32 kernel is 3xTF32: three TF32 products for each f32 one.
+TF32_TC_FLOP_S = 494.7e12
+
+
+def _k1_bound(shape, dtype, nbytes: float, flops: float) -> dict:
+    """The bound of the design that runs: bf16 up to D = 128 on the bf16
+    tensor cores; f32 in 3xTF32 (3·flops on the TF32 tensor cores); bf16
+    above D = 128 in one TF32 product (bf16 is exact in tf32). Every f32
+    row also carries the FP32-core bound, the SIMT design's."""
+    if dtype == torch.float32:
+        return {**bound(nbytes, 3 * flops, TF32_TC_FLOP_S), "bound_design": "3xTF32",
+                "fp32_core_bound_ms": bound(nbytes, flops, F32_FLOP_S)["bound_ms"]}
+    if shape[-1] > 128:
+        return {**bound(nbytes, flops, TF32_TC_FLOP_S), "bound_design": "TF32 (bf16 operands)"}
+    return {**bound(nbytes, flops, BF16_TC_FLOP_S), "bound_design": "bf16 tensor cores"}
 
 
 def phase_k1() -> dict:
@@ -280,10 +314,13 @@ def phase_k1() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     timed = {}
-    served = [((1, 6, 1370, 64), torch.bfloat16), ((2, 6, 1370, 64), torch.bfloat16),
-              ((1, 16, 577, 64), torch.bfloat16), ((1, 3, 65, 64), torch.bfloat16),
-              ((2, 6, 1370, 64), torch.float32)]
-    head_dims = [(s, dt) for s in K1_HEAD_DIM_SHAPES for dt in (torch.bfloat16, torch.float32)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    served = [((1, 6, 1370, 64), bf16), ((2, 6, 1370, 64), bf16), ((1, 16, 577, 64), bf16),
+              ((1, 3, 65, 64), bf16), ((2, 6, 1370, 64), f32), ((1, 6, 1370, 64), f32),
+              ((1, 16, 577, 64), f32)]
+    head_dims = [(s, dt) for s in K1_HEAD_DIM_SHAPES + K1_WIDE_SHAPES for dt in (bf16, f32)]
+    timed_served = {((1, 6, 1370, 64), bf16), ((1, 16, 577, 64), bf16),
+                    ((1, 6, 1370, 64), f32), ((1, 16, 577, 64), f32)}
     for shape, dtype in served + head_dims:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
         scale = shape[-1] ** -0.5
@@ -296,24 +333,25 @@ def phase_k1() -> dict:
         log(f"K1 {tuple(shape)} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol:g})")
         if not err <= tol:
             raise AssertionError(f"K1 disagrees with its plain version at {shape} {dtype}")
-        if (shape, dtype) in head_dims or shape in ((1, 6, 1370, 64), (1, 16, 577, 64)):
+        if (shape, dtype) in head_dims or (shape, dtype) in timed_served:
             b, h, n, d = shape
             flops = 4 * b * h * n * n * d  # Q·Kᵀ and P·V, 2 per multiply-add
             nbytes = 4 * b * h * n * d * q.element_size()
-            peak = BF16_TC_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S
             name = f"K1 {shape} {str(dtype)[6:]}"
             res = {"shape": list(shape), "dtype": str(dtype)[6:], "max_abs_err": err,
                    **_timed_kernel(name, lambda: flash_attention(q, k, v),
                                    lambda: attention_plain(q, k, v, scale),
                                    lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
-                   **bound(nbytes, flops, peak)}
+                   **_k1_bound(shape, dtype, nbytes, flops)}
+            fp32 = (f", FP32-core bound {res['fp32_core_bound_ms']:.5f} ms"
+                    if dtype == f32 else "")
             log(f"{name}: {flops / 1e9:.3f} GFLOP, {b * h * n * n / 1e6:.2f} M "
-                f"exponentials, {nbytes / 1e6:.2f} MB: bound {res['bound_ms']:.5f} "
-                f"ms ({res['bound_by']})")
+                f"exponentials, {nbytes / 1e6:.2f} MB: {res['bound_design']} bound "
+                f"{res['bound_ms']:.5f} ms ({res['bound_by']}){fp32}")
             timed[(shape, dtype)] = res
-    # The line's numbers are DA-V2-Small's at one image; classic DPT-Large's
-    # and the other head dims ride along.
-    main = timed.pop(((1, 6, 1370, 64), torch.bfloat16))
+    # The line's numbers are DA-V2-Small's at one image; classic DPT-Large's,
+    # the f32 serving shapes and the other head dims ride along.
+    main = timed.pop(((1, 6, 1370, 64), bf16))
     return {**main, "also": list(timed.values())}
 
 
@@ -423,14 +461,19 @@ def _k2_check(name: str, pts: torch.Tensor, k: int = 20, window: int = 4) -> flo
 
 
 # K2 at (k, window) pairs other than the served (20, 4): the JAX tests'
-# (10, 7), the limits (64, 8) and the smallest (1, 1).
-K2_PAIRS = [(10, 7), (64, 8), (1, 1)]
+# (10, 7), the register list's largest (64, 8) and the smallest (1, 1); the
+# sorted kernel (k_eff = min(k, taps) > 64: (100, 5), (300, 8) with k_eff =
+# 289, (500, 12)) and windows past the halo tile ((20, 12), (64, 16)).
+K2_PAIRS = [(10, 7), (64, 8), (1, 1), (100, 5), (300, 8), (20, 12), (64, 16), (500, 12)]
+# Timed beside (10, 7): the new paths, on the random cube.
+K2_TIMED_PAIRS = {(100, 5), (300, 8), (20, 12), (64, 16), (500, 12)}
 
 
 def _k2_pairs(gen: torch.Generator, surface: torch.Tensor) -> list[dict]:
-    """The general kernel, bit for bit against the plain version at each
-    pair on the cube, the surface and a NaN/inf grid; (10, 7) timed on
-    both 259² inputs beside its bound."""
+    """The general and sorted kernels, bit for bit against the plain
+    version at each pair on the cube, the surface and a NaN/inf grid;
+    (10, 7) timed on both 259² inputs, the pairs of K2_TIMED_PAIRS on the
+    cube, beside the bound."""
     from image_to_pointcloud_tpu_torch.ops.outlier import (
         grid_knn_mean_distances_cuda,
         grid_knn_mean_distances_plain,
@@ -448,12 +491,15 @@ def _k2_pairs(gen: torch.Generator, surface: torch.Tensor) -> list[dict]:
             err = _k2_check(f"k={k} window={r} {name}", pts, k=k, window=r)
             res = {"k": k, "window": r, "input": name, "shape": list(pts.shape),
                    "max_abs_err": err}
-            if (k, r) == (10, 7) and name != "NaN/inf":
+            if ((k, r) == (10, 7) and name != "NaN/inf") or (
+                    (k, r) in K2_TIMED_PAIRS and name == "random cube"):
                 b, hh, ww, _ = pts.shape
                 # Operations as the served row counts them: per in-grid tap
                 # 3 sub, 3 mul, 2 add and the compare with the list's last
-                # entry; ~5 a list entry for the mean of the square roots.
-                ops = b * (_knn_taps(hh, ww, r) * 9 + hh * ww * 5 * k)
+                # entry; ~5 an entry of the k_eff summed for the mean of
+                # the square roots.
+                k_eff = min(k, (2 * r + 1) ** 2)
+                ops = b * (_knn_taps(hh, ww, r) * 9 + hh * ww * 5 * k_eff)
                 nbytes = b * hh * ww * (12 + 4)
                 res.update(_timed_kernel(
                     f"K2 k={k} window={r} {name} {tuple(pts.shape)}",
@@ -749,7 +795,7 @@ def _full_width_compare(cpu_caps: dict, caps: dict) -> dict:
     }
 
 
-def phase_full_width(models, cpu_models) -> dict:
+def phase_full_width(models, cpu_models, cpu_stages: dict) -> dict:
     """The served DepthPipeline of each full-width model on the card (bf16,
     the quantized bundle) against the CPU (f32, the f32 return), same
     weights (the seeded init is made on the CPU), same frame: the raw
@@ -758,7 +804,8 @@ def phase_full_width(models, cpu_models) -> dict:
     points. Every stage's error is logged: each encoder block, the taps,
     the neck (last fusion layer), the head's raw output; the depth
     normalization on the card is held to the CPU's bit for bit on the
-    CPU's raw output."""
+    CPU's raw output. The CPU's stages are kept in ``cpu_stages`` for the
+    f32 phase."""
     from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth
 
     frame = _frame(518, 518, 0)
@@ -769,6 +816,7 @@ def phase_full_width(models, cpu_models) -> dict:
     failed = []
     for name in FULL_WIDTH_MODELS:
         cpu_caps, cpu_res = _served_stages(cpu_models.get(name), frame)
+        cpu_stages[name] = cpu_caps
         caps, res = _served_stages(models.get(name), frame)
         err = _full_width_compare(cpu_caps, caps)
         raw, cpu_raw = caps["head"], cpu_caps["head"]
@@ -791,6 +839,61 @@ def phase_full_width(models, cpu_models) -> dict:
     if failed:
         raise AssertionError(f"the full-width forward on the card disagrees with the CPU: {failed}")
     return out
+
+
+# f32 served on the card against the CPU's f32, max-normalized: the same
+# operations in f32 (K1 in 3xTF32, TF32 off for the convolutions and
+# matmuls), summed in other orders.
+F32_FULL_WIDTH_TOL = 1e-4
+F32_SERVED = (("depth-anything-v2", 12), ("dpt-large", 24))
+
+
+def phase_full_width_f32(out_dir: str, cpu_stages: dict) -> tuple[dict[str, int], dict]:
+    """``ModelManager("cuda", use_bf16=False)``: each model's f32 forward on
+    the card against the CPU's stages from :func:`phase_full_width` (the
+    same seeded weights and frame), every stage logged, the head's raw
+    output within ``F32_FULL_WIDTH_TOL`` (a miss points at an op left in
+    TF32); the TF32 flags at torch's defaults around it, off inside the
+    forward and restored after. Then two 518² PNG requests of each model
+    through the v1 app, each read on its own: K1 (all f32 launches, the
+    model being f32) exactly 12 / 24 times a request, K2 and K3 once,
+    PLYs not flat. Returns the launch counts and per-request counts."""
+    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # torch's defaults
+    f32_models = ModelManager("cuda", use_bf16=False)
+    frame = _frame(518, 518, 0)
+    failed = []
+    for name, _ in F32_SERVED:
+        pipe = f32_models.get(name)
+        if not (pipe.dtype == torch.float32 and pipe.exact_f32):
+            raise AssertionError(f"{name}: ModelManager(use_bf16=False) did not build f32")
+        caps, res = _served_stages(pipe, frame)
+        err = _full_width_compare(cpu_stages[name], caps)
+        flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        log(f"f32 full width {name}: max-normalized error card vs CPU, blocks "
+            f"{[f'{e:.2e}' for e in err['blocks']]}, taps {[f'{e:.2e}' for e in err['taps']]}, "
+            f"neck {err['neck']:.3e}, head {err['head']:.3e} (tol {F32_FULL_WIDTH_TOL:g}); "
+            f"TF32 flags after (matmul, cudnn) {flags}; {len(np.unique(res.points[:, 2]))} distinct z")
+        if not (err["head"] <= F32_FULL_WIDTH_TOL and flags == (False, True)
+                and len(np.unique(res.points[:, 2])) > 1):
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"the f32 forward on the card disagrees with the CPU's: {failed}")
+    counts: dict[str, int] = {}
+    per_request: dict[str, dict[str, float]] = {}
+    srv = _Server(out_dir, f32_models)
+    try:
+        for name, k1 in F32_SERVED:
+            path_counts = _served_requests(srv.base, "png", name, 2, k1)
+            n_requests = path_counts["unproject"]
+            for kname, c in path_counts.items():
+                counts[kname] = counts.get(kname, 0) + c
+                per_request.setdefault(kname, {})[f"{name} png f32"] = c / n_requests
+    finally:
+        srv.stop()
+    return counts, per_request
 
 
 def _rmse(a, b) -> float:
@@ -2299,10 +2402,16 @@ def main() -> int:
     from image_to_pointcloud_tpu_torch.serve.models import ModelManager
 
     models = ModelManager("cuda")
-    timed(phase_full_width, models, ModelManager("cpu"))
+    cpu_stages: dict = {}
+    timed(phase_full_width, models, ModelManager("cpu"), cpu_stages)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         int8_models = ModelManager("cuda", int8=True)
         counts, per_request = timed(phase_server, out_dir, models, int8_models)
+        f32_counts, f32_runs = timed(phase_full_width_f32, out_dir, cpu_stages)
+        cpu_stages.clear()
+        for name, c in f32_counts.items():
+            counts[name] += c
+            per_request[name].update(f32_runs[name])
         cli_counts, cli_runs = timed(phase_cli, out_dir)
         for name, c in cli_counts.items():
             counts[name] += c

@@ -12,12 +12,14 @@
 // element strides for b, h and n, so the (B, N, H·D) projections are read
 // in place without a head transpose.
 //
-// Head dims: both kernels are templates on a padded head dim kD ∈ {32, 64,
-// 128}; a call takes the smallest that holds D (D <= 128). Loads of columns
-// >= D are predicated to zero (so they add nothing to q·k and p·v), the
-// scale is the caller's 1/√D of the true D, and only the first D columns
-// are stored. kD = 64 is the served instance (DA-V2, ViT-L/16, ViT-B/16).
-// bf16 copies 16-byte chunks, so its D must be a multiple of 8 (the
+// Head dims: any. Up to 128 both kernels are templates on a padded head
+// dim kD ∈ {32, 64, 128}, and a call takes the smallest that holds D;
+// above it, O panels of 128 columns (below). Loads of columns >= D are
+// predicated to zero (so they add nothing to q·k and p·v), the scale is
+// the caller's 1/√D of the true D, and only the first D columns are
+// stored. kD = 64 is the served instance (DA-V2, ViT-L/16, ViT-B/16).
+// Rows are read in 16-byte chunks, so D must be a multiple of 8 in bf16
+// and of 4 in f32, and every pointer and b/h/n stride 16-byte aligned (the
 // wrapper pads other D into a contiguous buffer).
 //
 // bf16: `flash_fwd_bf16_wgmma_kernel`, on the tensor cores.
@@ -51,118 +53,63 @@
 //   Every pointer and b/h/n stride must be 16-byte aligned (the wrapper
 //   checks; the entry point refuses anything else).
 //
-// f32: `flash_fwd_kernel`, SIMT on the FP32 cores (the tiny f32 configs;
-//   TF32 tensor cores would not hold their 1e-5 tolerance). One thread owns
-//   one query row (q and acc in registers), K/V tiles of 64 keys (32 at
-//   kD = 128, to stay in 48 KB of static shared memory) are staged in
-//   shared memory and read as warp-wide broadcasts, and keys are consumed
-//   in chunks of 16 so the online-softmax rescale runs once per chunk. At
-//   kD = 128 q and acc take 256 registers a thread and spill.
+// f32: `flash_fwd_tf32x3_kernel`, on the tensor cores in 3xTF32.
+//   What bounds it: at DA-V2's (1, 6, 1370, 64) a call is 2.9 GFLOP. On
+//   the FP32 cores that is 0.043 ms at 67 TFLOP/s; 3xTF32 does three
+//   TF32 products for each f32 one, 0.0175 ms at 495 TFLOP/s; the 8.4 MB
+//   of q/k/v/o take 0.0025 ms at 3.35 TB/s: compute.
+//   Precision: each f32 operand x is split into hi = cvt.rna.tf32(x) and
+//   lo = cvt.rna.tf32(x - hi); a·b is taken as a_hi·b_hi + a_hi·b_lo +
+//   a_lo·b_hi with an f32 accumulator, which drops only a_lo·b_lo and the
+//   rounding of lo (about 2^-21 of |a·b|), against the 1e-5 tolerance.
+//   S = Q·Kᵀ and O += P·V are both done so; P is split in registers. The
+//   tensor cores' additions into an accumulator do not round to nearest,
+//   so what accumulates is kept short: the correction products of S go to
+//   an accumulator of their own (added to the hi·hi sum once, in f32), and
+//   each key tile's P·V goes to a fresh accumulator that is added to O in
+//   f32 (O = O·c + tile, one fmaf). Summed into one accumulator over all
+//   of DA-V2's 43 key tiles, the error was ~3x an f32 FMA loop's, enough
+//   to move an int8 encoder's activation codes (PERF.md §6).
+//   Design: the bf16 kernel's CTA (two warpgroups over one 64-query tile,
+//   each its half of the key tiles, merged at the end). tf32 wgmma has no
+//   transpose bit, so both operands are K-major: Q and K as stored, and V
+//   written transposed (Vᵀ: one row a head-dim column, keys contiguous).
+//   No copy engine can split or transpose, so K/V go through registers: a
+//   warpgroup loads its next key tile with float4 loads while the tensor
+//   cores work on the current one, then writes hi and lo into its single
+//   shared-memory stage (K in the 128-byte swizzle, Vᵀ with the keys of
+//   each group of 8 permuted so that S's accumulator pairs are directly
+//   P's A fragment). Key tiles are kBK = 32 keys (16 at kD = 128, where
+//   the O fragment is 64 registers).
+//   Shared memory (hi + lo of each tile): Q 64 × kD × 8 bytes, shared by
+//   the warpgroups; each warpgroup K kBK × kD × 8 and Vᵀ kD × kBK × 8.
+//     kD =  32: Q 16 KB + 2 × (8 + 8) KB = 48 KB (+ 1 KB alignment slack)
+//     kD =  64: Q 32 KB + 2 × (16 + 16) KB = 96 KB
+//     kD = 128: Q 64 KB + 2 × (16 + 16) KB = 128 KB
+//   The merge of (m, l, O) reuses the warpgroups' K/V area. Registers (O,
+//   a tile's O, S and its corrections, P's hi and lo, the prefetched
+//   tile) make it one CTA an SM at every kD; DA-V2's batch-1 grid is 132
+//   CTAs, one an SM anyway.
+//
+// D > 128, both dtypes: the same kernel with kWide. O is cut into panels
+//   of 128 columns, one CTA per (b, h, 64-query tile, O panel): each CTA
+//   recomputes S over the whole D, streaming Q and K through its
+//   warpgroup's buffers in 32-column panels (the k-steps of Q·Kᵀ), and
+//   keeps only its panel of V and O. S is computed ceil(D / 128) times;
+//   loads are not overlapped with the products. Per warpgroup: Q panel
+//   16 KB, K panel 4 KB, Vᵀ panel 16 KB (72 KB a CTA). bf16 runs it too:
+//   a bf16 value is exact in tf32, so only the hi products are issued and
+//   P is rounded to bf16 as in the bf16 kernel. Limits left: B·H and the
+//   number of O panels at most 65535 (the launch grid's y and z).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
-
-// ---------------------------------------------------------------- f32 SIMT
-
-constexpr int kBQ = 64;     // queries (threads) per block
-constexpr int kChunk = 16;  // keys per online-softmax update
-
-template <int kD>
-__global__ void __launch_bounds__(kBQ)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H, int N, int D,
-                 long long qsb, long long qsh, long long qsn,
-                 long long ksb, long long ksh, long long ksn,
-                 long long vsb, long long vsh, long long vsn,
-                 long long osb, long long osh, long long osn, float scale) {
-  constexpr int kBK = kD <= 64 ? 64 : 32;  // keys per shared-memory tile
-  __shared__ float4 ks[kBK][kD / 4];
-  __shared__ float4 vs[kBK][kD / 4];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int row = blockIdx.x * kBQ + threadIdx.x;
-  const float* qb = q + b * qsb + h * qsh;
-  const float* kb = k + b * ksb + h * ksh;
-  const float* vb = v + b * vsb + h * vsh;
-
-  float qr[kD];
-  float acc[kD];
-#pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    qr[d] = row < N && d < D ? qb[row * qsn + d] : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
-  float* ksf = reinterpret_cast<float*>(ks);
-  float* vsf = reinterpret_cast<float*>(vs);
-  for (int k0 = 0; k0 < N; k0 += kBK) {
-    const int nk = min(kBK, N - k0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int idx = threadIdx.x; idx < kBK * kD; idx += kBQ) {
-      const int kk = idx / kD;
-      const int d = idx - kk * kD;
-      const bool in = kk < nk && d < D;
-      ksf[idx] = in ? kb[(k0 + kk) * ksn + d] : 0.f;
-      vsf[idx] = in ? vb[(k0 + kk) * vsn + d] : 0.f;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < nk; c += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < kD / 4; ++d4) {
-          const float4 kv = ks[c + j][d4];
-          dot += qr[4 * d4] * kv.x;
-          dot += qr[4 * d4 + 1] * kv.y;
-          dot += qr[4 * d4 + 2] * kv.z;
-          dot += qr[4 * d4 + 3] * kv.w;
-        }
-        s[j] = (c + j < nk) ? dot * scale : -INFINITY;
-        cmax = fmaxf(cmax, s[j]);
-      }
-      const float m_new = fmaxf(m, cmax);  // finite: the chunk has a valid key
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < kD; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = expf(s[j] - m_new);  // masked keys: exp(-inf) = 0
-        l += p;
-#pragma unroll
-        for (int d4 = 0; d4 < kD / 4; ++d4) {
-          const float4 vv = vs[c + j][d4];
-          acc[4 * d4] += p * vv.x;
-          acc[4 * d4 + 1] += p * vv.y;
-          acc[4 * d4 + 2] += p * vv.z;
-          acc[4 * d4 + 3] += p * vv.w;
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  if (row < N) {
-    float* ob = o + b * osb + h * osh + row * osn;
-    const float inv = 1.f / l;
-#pragma unroll
-    for (int d = 0; d < kD; ++d) {
-      if (d < D) ob[d] = acc[d] * inv;
-    }
-  }
-}
 
 // ------------------------------------------------------ bf16 tensor cores
 
@@ -590,44 +537,544 @@ flash_fwd_bf16_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-bool aligned16(const void* p, const long long* st) {
+// ------------------------------------------------------------ f32: 3xTF32
+
+// The tf32 kernel's shared-memory layout at O width kD. Every operand is
+// K-major in 32-bit words: rows of 32 words (128 bytes, the 128-byte
+// swizzle), a wider row as 32-word panels side by side; a Vᵀ row is kBK
+// words (128 bytes, or 64 in the 64-byte swizzle at kBK = 16). Each tile
+// has a hi half and, kBytes further, a lo half. Without kWide the whole Q
+// tile sits at 0 for both warpgroups, and each warpgroup has one stage of
+// K and Vᵀ; with kWide each warpgroup has its own Q panel buffer.
+template <int kD, bool kWide>
+struct Tf32Layout {
+  static_assert(kD == 32 || kD == 64 || kD == 128, "O widths");
+  static constexpr int kBK = kD == 128 ? 16 : 32;   // keys a tile
+  static constexpr int kQK = kWide ? 32 : kD;       // Q / K columns resident
+  static constexpr int kQBytes = kTile * kQK * 4;   // one half
+  static constexpr int kKBytes = kBK * kQK * 4;
+  static constexpr int kVBytes = kD * kBK * 4;
+  static constexpr int kVRowBytes = kBK * 4;
+  static constexpr uint64_t kVSwizzle = kVRowBytes == 128 ? 1 : 2;
+  static constexpr uint32_t kVSbo = 8 * kVRowBytes / 16;
+  static constexpr int kWgBytes = (kWide ? 2 * kQBytes : 0) + 2 * kKBytes + 2 * kVBytes;
+  static constexpr int kSmemWg = kWide ? 0 : 2 * kQBytes;
+  static constexpr int kAcc = kD / 2;  // O fragment floats a thread
+  static constexpr int kMergeBytes = (kAcc + 4) * kWgThreads * 4;
+  static_assert(kMergeBytes <= 2 * kWgBytes, "the merge reuses the warpgroups' area");
+  static constexpr int kSmemBytes = kSmemWg + 2 * kWgBytes + 1024;  // + alignment slack
+  static_assert(kSmemBytes <= 232448, "fits in an SM's shared memory");
+
+  static __device__ __forceinline__ uint32_t q(int wg) {
+    return kWide ? kSmemWg + wg * kWgBytes : 0;
+  }
+  static __device__ __forceinline__ uint32_t k(int wg) {
+    return kSmemWg + wg * kWgBytes + (kWide ? 2 * kQBytes : 0);
+  }
+  static __device__ __forceinline__ uint32_t v(int wg) { return k(wg) + 2 * kKBytes; }
+};
+
+// Byte offset of 16-byte chunk c of row r in a tile of kRows rows whose
+// rows are kRowBytes (64 or 128) wide panels: the swizzle XORs the chunk
+// with the row's bits above the 128-byte line (Bf16Layout::chunk's rule).
+template <int kRows, int kRowBytes>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  constexpr int kChunks = kRowBytes / 16;
+  const int p = c / kChunks;
+  const int cc = c % kChunks;
+  return p * kRows * kRowBytes + r * kRowBytes +
+         ((cc ^ ((r * kRowBytes >> 7) & (kChunks - 1))) << 4);
+}
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// A kRows × kCols-word tile of T in a warpgroup's registers, as float4
+// chunks: chunk j of a thread is linear index i = tid + 128·j, eight
+// consecutive rows first (row 8·(i / 8 / kC) + i % 8, column chunk i / 8 %
+// kC), so a warp's loads fill whole 32-byte sectors and its K-major
+// stores hit eight differently swizzled chunks.
+template <typename T, int kRows, int kCols>
+struct TileRegs {
+  static constexpr int kC = kCols / 4;
+  static constexpr int kN = kRows * kC / kWgThreads;
+  static_assert(kRows % 8 == 0 && kRows * kC % kWgThreads == 0, "whole chunks a thread");
+  float4 x[kN];
+
+  static __device__ __forceinline__ void coords(int i, int& r, int& c) {
+    c = i / 8 % kC;
+    r = i / 8 / kC * 8 + i % 8;
+  }
+  // Rows at or past `rows` and columns at or past `cols` (a multiple of
+  // 4) are zeros; their addresses are never formed into loads.
+  __device__ __forceinline__ void load(const T* base, long long sn, int rows, int cols, int tid) {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      int r, c;
+      coords(tid + kWgThreads * j, r, c);
+      x[j] = r < rows && 4 * c < cols ? load4(base + r * sn + 4 * c)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+};
+
+// The tile's hi (and with kSplit its lo) halves into a K-major tile of
+// kDstRows rows at byte offsets `hi`, `lo` of `smem`, from row `row0` on.
+template <bool kSplit, int kDstRows, typename R>
+__device__ __forceinline__ void store_kmajor(const R& t, uint8_t* smem, uint32_t hi, uint32_t lo,
+                                             int row0, int tid) {
+#pragma unroll
+  for (int j = 0; j < R::kN; ++j) {
+    int r, c;
+    R::coords(tid + kWgThreads * j, r, c);
+    const uint32_t off = swz<kDstRows, 128>(row0 + r, c);
+    const float4 x = t.x[j];
+    const float4 h = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
+    *reinterpret_cast<float4*>(smem + hi + off) = h;
+    if constexpr (kSplit) {
+      *reinterpret_cast<float4*>(smem + lo + off) =
+          make_float4(tf32_rna(x.x - h.x), tf32_rna(x.y - h.y), tf32_rna(x.z - h.z),
+                      tf32_rna(x.w - h.w));
+    }
+  }
+}
+
+// A (keys × columns) V tile's hi (and lo) halves transposed into Vᵀ (a row
+// per column, kVRowBytes of keys). Within each group of 8 keys, key e goes
+// to position e / 2 + 4·(e % 2): the A fragment of a tf32 k8 step holds
+// columns t and t + 4 of a thread's row, where S's accumulator holds keys
+// 2t and 2t + 1, so P's registers feed P·V as they are.
+template <bool kSplit, int kVRows, int kVRowBytes, typename R>
+__device__ __forceinline__ void store_vt(const R& t, uint8_t* smem, uint32_t hi, uint32_t lo,
+                                         int tid) {
+#pragma unroll
+  for (int j = 0; j < R::kN; ++j) {
+    int r, c;
+    R::coords(tid + kWgThreads * j, r, c);
+    const int kp = (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+    const float xs[4] = {t.x[j].x, t.x[j].y, t.x[j].z, t.x[j].w};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const uint32_t off = swz<kVRows, kVRowBytes>(4 * c + m, kp / 4) + 4 * (kp % 4);
+      const float h = tf32_rna(xs[m]);
+      *reinterpret_cast<float*>(smem + hi + off) = h;
+      if constexpr (kSplit) *reinterpret_cast<float*>(smem + lo + off) = tf32_rna(xs[m] - h);
+    }
+  }
+}
+
+#define IPC_ACC8(d) \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7])
+#define IPC_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+
+// S (+)= A·B, m64n{N}k8 tf32, A and B from shared memory, both K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                              int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<16>(float (&d)[8], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " IPC_D8 ", %8, %9, p, 1, 1;\n}\n"
+      : IPC_ACC8(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " IPC_D16 ", %16, %17, p, 1, 1;\n}\n"
+      : IPC_ACC16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (+)= A·B, m64n{N}k8 tf32, A (tf32 words) from registers, B from shared
+// memory, K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " IPC_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : IPC_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " IPC_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : IPC_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " IPC_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : IPC_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// S (+)= Q·Kᵀ over kSteps k8 steps of the resident Q and K columns (hi at
+// q / k, lo kQBytes / kKBytes further); step kk reads panel kk / 4, 32
+// bytes further along the swizzle row a step. With kSplit the correction
+// products lo·hi and hi·lo go to their own accumulator `c`, so the small
+// terms are not added into (and truncated against) the large hi·hi sum.
+template <typename L, bool kSplit, int kSteps>
+__device__ __forceinline__ void qk_steps(float (&s)[L::kBK / 2], float (&c)[L::kBK / 2],
+                                         uint32_t q, uint32_t k, bool accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const uint32_t oq = (kk / 4) * kTile * 128 + (kk % 4) * 32;
+    const uint32_t ok = (kk / 4) * L::kBK * 128 + (kk % 4) * 32;
+    const uint64_t qh = smem_desc(q + oq, 1, 64, 1);
+    const uint64_t kh = smem_desc(k + ok, 1, 64, 1);
+    const int acc = accumulate || kk > 0;
+    if constexpr (kSplit) {
+      wgmma_tf32_ss<L::kBK>(c, smem_desc(q + L::kQBytes + oq, 1, 64, 1), kh, acc);
+      wgmma_tf32_ss<L::kBK>(c, qh, smem_desc(k + L::kKBytes + ok, 1, 64, 1), 1);
+    }
+    wgmma_tf32_ss<L::kBK>(s, qh, kh, acc);
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Accumulator fragments as in the bf16 kernel (element i of m64nN at row
+// 16w + g + 8·((i >> 1) & 1), column 8·(i >> 2) + 2t + (i & 1)). T =
+// float: 3xTF32. T = bf16 (kWide only): bf16 is exact in tf32, so one
+// product, with P rounded to bf16 as the bf16 kernel rounds it.
+template <typename T, int kD, bool kWide>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o, int H, int N, int D,
+                        long long qsb, long long qsh, long long qsn,
+                        long long ksb, long long ksh, long long ksn,
+                        long long vsb, long long vsh, long long vsn,
+                        long long osb, long long osh, long long osn, float scale_log2) {
+  using L = Tf32Layout<kD, kWide>;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int kBK = L::kBK;
+  static_assert(kSplit || kWide, "bf16 up to D = 128 is the bf16 kernel's");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (sbase - raw);  // generic pointer at sbase
+  float* merge = reinterpret_cast<float*>(sm + L::kSmemWg);
+
+  const int wg = threadIdx.x / kWgThreads;
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kTile;
+  const int col0 = kWide ? blockIdx.z * kD : 0;  // this CTA's O panel
+  const T* qb = q + b * qsb + h * qsh + static_cast<long long>(q0) * qsn;
+  const T* kb = k + b * ksb + h * ksh;
+  const T* vb = v + b * vsb + h * vsh + col0;
+
+  const int tiles = (N + kBK - 1) / kBK;
+  const int half = (tiles + 1) / 2;
+  const int first = wg == 0 ? 0 : half;
+  const int count = (wg == 0 ? half : tiles) - first;
+  const uint32_t qoff = L::q(wg), koff = L::k(wg), voff = L::v(wg);
+
+  TileRegs<T, kBK, L::kQK> kr;
+  TileRegs<T, kBK, kD> vr;
+  if constexpr (!kWide) {
+    // Q once (each warpgroup its 32 rows), and the first K/V tile.
+    TileRegs<T, kTile / 2, kD> qr;
+    qr.load(qb + static_cast<long long>(32 * wg) * qsn, qsn, N - q0 - 32 * wg, D, tid);
+    store_kmajor<kSplit, kTile>(qr, sm, qoff, qoff + L::kQBytes, 32 * wg, tid);
+    if (count > 0) {
+      const long long r0 = static_cast<long long>(first) * kBK;
+      kr.load(kb + r0 * ksn, ksn, N - first * kBK, D, tid);
+      vr.load(vb + r0 * vsn, vsn, N - first * kBK, D, tid);
+      store_kmajor<kSplit, kBK>(kr, sm, koff, koff + L::kKBytes, 0, tid);
+      store_vt<kSplit, kD, L::kVRowBytes>(vr, sm, voff, voff + L::kVBytes, tid);
+    }
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  float acc[L::kAcc];
+#pragma unroll
+  for (int i = 0; i < L::kAcc; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g and g + 8, log2 domain
+  float l0 = 0.f, l1 = 0.f;              // this thread's partial sums
+
+  for (int it = 0; it < count; ++it) {
+    const int tile = first + it;
+    const long long r0 = static_cast<long long>(tile) * kBK;
+    const int nk = N - tile * kBK;  // valid keys of the tile (may exceed kBK)
+    float s[kBK / 2], sc[kBK / 2];  // hi·hi, and the corrections
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] = sc[i] = 0.f;
+    if constexpr (kWide) {
+      // S over D in 32-column panels of Q and K, each loaded, split and
+      // consumed before the next.
+      for (int p = 0; 32 * p < D; ++p) {
+        TileRegs<T, kTile, 32> qr;
+        qr.load(qb + 32 * p, qsn, N - q0, D - 32 * p, tid);
+        kr.load(kb + r0 * ksn + 32 * p, ksn, nk, D - 32 * p, tid);
+        store_kmajor<kSplit, kTile>(qr, sm, qoff, qoff + L::kQBytes, 0, tid);
+        store_kmajor<kSplit, kBK>(kr, sm, koff, koff + L::kKBytes, 0, tid);
+        fence_proxy_async();
+        wg_barrier(wg);
+        wgmma_fence();
+        qk_steps<L, kSplit, 4>(s, sc, sbase + qoff, sbase + koff, p > 0);
+        wgmma_commit();
+        wgmma_wait();
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) {
+          fence_reg(s[i]);
+          fence_reg(sc[i]);
+        }
+        wg_barrier(wg);  // the panel is consumed before it is refilled
+      }
+      vr.load(vb + r0 * vsn, vsn, nk, D - col0, tid);
+      store_vt<kSplit, kD, L::kVRowBytes>(vr, sm, voff, voff + L::kVBytes, tid);
+      fence_proxy_async();
+      wg_barrier(wg);
+    } else {
+      if (it + 1 < count) {  // the next tile, in flight during this one's products
+        kr.load(kb + (r0 + kBK) * ksn, ksn, nk - kBK, D, tid);
+        vr.load(vb + (r0 + kBK) * vsn, vsn, nk - kBK, D, tid);
+      }
+      wgmma_fence();
+      qk_steps<L, kSplit, kD / 8>(s, sc, sbase + qoff, sbase + koff, false);
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        fence_reg(s[i]);
+        fence_reg(sc[i]);
+      }
+    }
+    if constexpr (kSplit) {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) s[i] += sc[i];
+    }
+
+    // Online softmax in the log2 domain; keys >= N get -inf.
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+      const float x = col < nk ? s[i] * scale_log2 : -INFINITY;
+      s[i] = x;
+      if ((i >> 1) & 1) {
+        mx1 = fmaxf(mx1, x);
+      } else {
+        mx0 = fmaxf(mx0, x);
+      }
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0));  // finite: the tile has a valid key
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float c0 = exp2f(m0 - mn0);
+    const float c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= c0;
+    l1 *= c1;
+    // P's A fragments, one a k8 step of 8 keys: (row g, key 2t), (g + 8,
+    // 2t), (g, 2t + 1), (g + 8, 2t + 1), at positions t, t, t + 4, t + 4.
+    uint32_t ph[kBK / 8][4], pl[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      float pa = exp2f(s[4 * j] - mn0);
+      float pb = exp2f(s[4 * j + 1] - mn0);
+      float pc = exp2f(s[4 * j + 2] - mn1);
+      float pd = exp2f(s[4 * j + 3] - mn1);
+      l0 += pa + pb;
+      l1 += pc + pd;
+      if constexpr (!kSplit) {  // as the P·V dot sees it in bf16
+        pa = __bfloat162float(__float2bfloat16_rn(pa));
+        pb = __bfloat162float(__float2bfloat16_rn(pb));
+        pc = __bfloat162float(__float2bfloat16_rn(pc));
+        pd = __bfloat162float(__float2bfloat16_rn(pd));
+      }
+      const float a[4] = {pa, pc, pb, pd};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float hi = tf32_rna(a[e]);
+        ph[j][e] = __float_as_uint(hi);
+        pl[j][e] = __float_as_uint(tf32_rna(a[e] - hi));
+      }
+    }
+
+    // This tile's P·V into a fresh accumulator (k8 step j reads keys 8j..
+    // of Vᵀ, 32 bytes further a step), then O = O·c + tile in f32, rounded
+    // to nearest: the tensor cores' additions into an accumulator are not,
+    // and over all of N's tiles in one accumulator their error would grow
+    // with N.
+    const uint32_t vs = sbase + voff;
+    float ot[L::kAcc];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      const uint64_t vh = smem_desc(vs + 32 * j, 1, L::kVSbo, L::kVSwizzle);
+      if constexpr (kSplit) {
+        wgmma_tf32_rs<kD>(ot, pl[j], vh, j > 0);
+        wgmma_tf32_rs<kD>(ot, ph[j],
+                          smem_desc(vs + L::kVBytes + 32 * j, 1, L::kVSbo, L::kVSwizzle), 1);
+        wgmma_tf32_rs<kD>(ot, ph[j], vh, 1);
+      } else {
+        wgmma_tf32_rs<kD>(ot, ph[j], vh, j > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int i = 0; i < L::kAcc; ++i) {
+      fence_reg(ot[i]);
+      acc[i] = fmaf(acc[i], ((i >> 1) & 1) ? c1 : c0, ot[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_reg(ph[j][e]);
+        fence_reg(pl[j][e]);
+      }
+    }
+    wg_barrier(wg);  // the stage is consumed before it is refilled
+    if constexpr (!kWide) {
+      if (it + 1 < count) {
+        store_kmajor<kSplit, kBK>(kr, sm, koff, koff + L::kKBytes, 0, tid);
+        store_vt<kSplit, kD, L::kVRowBytes>(vr, sm, voff, voff + L::kVBytes, tid);
+        fence_proxy_async();
+        wg_barrier(wg);
+      }
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+
+  // Merge, as the bf16 kernel's, through the warpgroups' K/V area once
+  // both are done with it.
+  __syncthreads();
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < L::kAcc; ++i) merge[i * kWgThreads + tid] = acc[i];
+    float* ml = merge + L::kAcc * kWgThreads + 4 * tid;
+    ml[0] = m0;
+    ml[1] = m1;
+    ml[2] = l0;
+    ml[3] = l1;
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  const float* ml = merge + L::kAcc * kWgThreads + 4 * tid;
+  const float mo0 = ml[0], mo1 = ml[1];
+  const float mm0 = fmaxf(m0, mo0), mm1 = fmaxf(m1, mo1);
+  const float a0 = exp2f(m0 - mm0), b0 = exp2f(mo0 - mm0);  // exp2(-inf) = 0: no keys
+  const float a1 = exp2f(m1 - mm1), b1 = exp2f(mo1 - mm1);
+  const float inv0 = 1.f / (l0 * a0 + ml[2] * b0);
+  const float inv1 = 1.f / (l1 * a1 + ml[3] * b1);
+
+  const int row0 = q0 + 16 * warp + g;
+  T* ob = o + b * osb + h * osh + col0;
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col0 + col >= D) break;  // D is a multiple of 4: whole pairs
+    const float* mo = merge + 4 * j * kWgThreads + tid;
+    if (row0 < N) {
+      store_pair(ob + row0 * osn + col, (acc[4 * j] * a0 + mo[0] * b0) * inv0,
+                 (acc[4 * j + 1] * a0 + mo[kWgThreads] * b0) * inv0);
+    }
+    if (row0 + 8 < N) {
+      store_pair(ob + (row0 + 8) * osn + col, (acc[4 * j + 2] * a1 + mo[2 * kWgThreads] * b1) * inv1,
+                 (acc[4 * j + 3] * a1 + mo[3 * kWgThreads] * b1) * inv1);
+    }
+  }
+}
+
+// 16-byte aligned: the pointer, and the b/h/n strides in elements (8 bf16
+// or 4 f32 to 16 bytes).
+bool aligned16(const void* p, const long long* st, int per16) {
   if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   for (int i = 0; i < 3; ++i) {
-    if (st[i] % 8 != 0) return false;  // 8 bf16 = 16 bytes
+    if (st[i] % per16 != 0) return false;
   }
   return true;
 }
 
-template <int kD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
-               const long long* st, float scale, cudaStream_t s) {
-  dim3 grid((N + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<kD><<<grid, kBQ, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, N, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale);
+// Above 48 KB of shared memory only after opting in, once per device and
+// instance (a bit per device in `configured`).
+template <class Kernel>
+cudaError_t opt_in(Kernel kernel, int bytes, unsigned& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32) return cudaErrorInvalidDevice;
+  if (!(configured & (1u << dev))) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    configured |= 1u << dev;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, int kD, bool kWide>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
+                const long long* st, float scale, cudaStream_t s) {
+  static unsigned configured = 0;
+  constexpr int kSmem = Tf32Layout<kD, kWide>::kSmemBytes;
+  const cudaError_t err = opt_in(flash_fwd_tf32x3_kernel<T, kD, kWide>, kSmem, configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kTile - 1) / kTile, B * H, kWide ? (D + kD - 1) / kD : 1);
+  flash_fwd_tf32x3_kernel<T, kD, kWide><<<grid, kThreads, kSmem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), H, N, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <int kD, bool kMasked>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
                 const long long* st, float scale, cudaStream_t s) {
-  // Above 48 KB of shared memory only after opting in, once per device
-  // and instance.
   static unsigned configured = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 32) return cudaErrorInvalidDevice;
-  if (!(configured & (1u << dev))) {
-    err = cudaFuncSetAttribute(flash_fwd_bf16_wgmma_kernel<kD, kMasked>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Bf16Layout<kD>::kSmemBytes);
-    if (err != cudaSuccess) return err;
-    configured |= 1u << dev;
-  }
-  dim3 grid((N + kTile - 1) / kTile, B * H);
   constexpr int kSmem = Bf16Layout<kD>::kSmemBytes;
+  const cudaError_t err = opt_in(flash_fwd_bf16_wgmma_kernel<kD, kMasked>, kSmem, configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kTile - 1) / kTile, B * H);
   flash_fwd_bf16_wgmma_kernel<kD, kMasked><<<grid, kThreads, kSmem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, N, D, st[0],
@@ -638,31 +1085,35 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. D: 1..128 (bf16: a multiple of 8).
-// strides: 12 element strides, (b, h, n) for q, k, v, o in that order.
-// Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. D >= 1, a multiple of 4 (f32) or 8
+// (bf16); B·H and ceil(D / 128) at most 65535 (the launch grid's y and z).
+// strides: 12 element strides, (b, h, n) for q, k, v, o in that order,
+// 16-byte aligned as the pointers. Returns the launch's cudaError_t.
 extern "C" int ipc_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, int B, int H, int N, int D,
                                    const long long* st, float scale,
                                    int dtype, void* stream) {
-  if (D < 1 || D > 128 || N <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (D < 1 || N <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (static_cast<long long>(B) * H > 65535 || (D + 127) / 128 > 65535)
+    return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const int per16 = dtype == 0 ? 4 : 8;
+  if (D % per16 != 0) return cudaErrorInvalidValue;
+  if (!(aligned16(q, st, per16) && aligned16(k, st + 3, per16) && aligned16(v, st + 6, per16) &&
+        aligned16(o, st + 9, per16)))
+    return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (D <= 32) return launch_f32<32>(q, k, v, o, B, H, N, D, st, scale, s);
-    if (D <= 64) return launch_f32<64>(q, k, v, o, B, H, N, D, st, scale, s);
-    return launch_f32<128>(q, k, v, o, B, H, N, D, st, scale, s);
+    if (D <= 32) return launch_tf32<float, 32, false>(q, k, v, o, B, H, N, D, st, scale, s);
+    if (D <= 64) return launch_tf32<float, 64, false>(q, k, v, o, B, H, N, D, st, scale, s);
+    if (D <= 128) return launch_tf32<float, 128, false>(q, k, v, o, B, H, N, D, st, scale, s);
+    return launch_tf32<float, 128, true>(q, k, v, o, B, H, N, D, st, scale, s);
   }
-  if (dtype == 1) {
-    if (D % 8 != 0) return cudaErrorInvalidValue;
-    if (!(aligned16(q, st) && aligned16(k, st + 3) && aligned16(v, st + 6) &&
-          aligned16(o, st + 9)))
-      return cudaErrorMisalignedAddress;
-    if (D == 32) return launch_bf16<32, false>(q, k, v, o, B, H, N, D, st, scale, s);
-    if (D < 32) return launch_bf16<32, true>(q, k, v, o, B, H, N, D, st, scale, s);
-    if (D == 64) return launch_bf16<64, false>(q, k, v, o, B, H, N, D, st, scale, s);
-    if (D < 64) return launch_bf16<64, true>(q, k, v, o, B, H, N, D, st, scale, s);
-    if (D == 128) return launch_bf16<128, false>(q, k, v, o, B, H, N, D, st, scale, s);
-    return launch_bf16<128, true>(q, k, v, o, B, H, N, D, st, scale, s);
-  }
-  return cudaErrorInvalidValue;
+  if (D == 32) return launch_bf16<32, false>(q, k, v, o, B, H, N, D, st, scale, s);
+  if (D < 32) return launch_bf16<32, true>(q, k, v, o, B, H, N, D, st, scale, s);
+  if (D == 64) return launch_bf16<64, false>(q, k, v, o, B, H, N, D, st, scale, s);
+  if (D < 64) return launch_bf16<64, true>(q, k, v, o, B, H, N, D, st, scale, s);
+  if (D == 128) return launch_bf16<128, false>(q, k, v, o, B, H, N, D, st, scale, s);
+  if (D < 128) return launch_bf16<128, true>(q, k, v, o, B, H, N, D, st, scale, s);
+  return launch_tf32<__nv_bfloat16, 128, true>(q, k, v, o, B, H, N, D, st, scale, s);
 }

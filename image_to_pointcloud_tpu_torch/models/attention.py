@@ -2,12 +2,15 @@
 PyTorch version.
 
 Counterpart of ``image_to_pointcloud_tpu/models/attention.py``. The
-kernels (``csrc/flash_attention.cu``: bf16 on the tensor cores with
-``wgmma``, f32 on the FP32 cores) replace the Pallas TPU kernel
+kernels (``csrc/flash_attention.cu``, on the tensor cores with ``wgmma``:
+bf16 directly, f32 in 3xTF32) replace the Pallas TPU kernel
 ``flash_attention``; :func:`attention_plain` is ``_attention_xla``'s
-math. Head dims up to 128 (:data:`MAX_HEAD_DIM`), as the Pallas kernel
-takes any. The choice follows the tensor's device: a CUDA tensor launches the
-kernel (or raises), a CPU tensor takes the plain version; a caller that
+math. Any head dim, as the Pallas kernel takes any: above 128 the kernel
+writes O in 128-column panels and recomputes the logits for each. The
+only limits are the launch grid's (:data:`MAX_BATCH_HEADS` batch × heads,
+:data:`MAX_HEAD_DIM_PANELS` panels). The choice follows the tensor's
+device: a CUDA tensor launches the kernel (or raises), a CPU tensor
+takes the plain version; a caller that
 asks for no flash (``use_flash=False``, the backbones'
 ``use_flash_attention``, as the trainer builds them) gets the plain
 version on any device. Unlike the JAX package there is no minimum
@@ -27,11 +30,21 @@ import torch.nn.functional as F
 
 from image_to_pointcloud_tpu_torch import cuda
 
-__all__ = ["MAX_HEAD_DIM", "attention_plain", "flash_attention", "multi_head_attention"]
+__all__ = [
+    "MAX_BATCH_HEADS",
+    "MAX_HEAD_DIM_PANELS",
+    "attention_plain",
+    "flash_attention",
+    "multi_head_attention",
+]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The kernel's largest padded head dim (csrc/flash_attention.cu: 32, 64, 128).
-MAX_HEAD_DIM = 128
+# The launch grid's limits (csrc/flash_attention.cu): B·H is its y
+# dimension and the 128-column O panels (D > 128) its z.
+MAX_BATCH_HEADS = 65535
+MAX_HEAD_DIM_PANELS = 65535
+# Elements of a 16-byte chunk: the kernels read rows 16 bytes at a time.
+_PER_16B = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def attention_plain(
@@ -55,18 +68,19 @@ def attention_plain(
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> torch.Tensor:
-    """Flash attention over (B, H, N, D) CUDA tensors, f32 or bf16, D <= 128.
+    """Flash attention over (B, H, N, D) CUDA tensors, f32 or bf16, any D.
 
     The head dim must be contiguous; batch, head and sequence strides are
     free, so head-split views of (B, N, H·D) projections are read in
-    place (bf16: every pointer and stride a multiple of 16 bytes). A bf16
-    head dim that is not a multiple of 8 (the kernel copies 16-byte rows
-    with ``cp.async``) is zero-padded into contiguous copies first; the
-    scale stays 1/√D of the true D. The output has the input dtype and
-    shape, laid out as (B, N, H, D) underneath so merging the heads back
-    is free. bf16 runs the tensor-core kernel, f32 the SIMT one. D above
-    :data:`MAX_HEAD_DIM` raises. Forward only: under grad mode, inputs
-    that require grad raise.
+    place. The kernels read rows 16 bytes at a time: a head dim that is
+    not a multiple of 16 bytes (8 bf16, 4 f32) is zero-padded into
+    contiguous copies first, the scale staying 1/√D of the true D;
+    pointers and strides that are not multiples of 16 bytes raise. The output has the input dtype and shape, laid out as (B, N,
+    H, D) underneath so merging the heads back is free. bf16 up to D = 128
+    runs the bf16 tensor-core kernel, f32 and D > 128 the 3xTF32 one. B·H
+    above :data:`MAX_BATCH_HEADS` or more than :data:`MAX_HEAD_DIM_PANELS`
+    O panels raise. Forward only: under grad mode, inputs that require
+    grad raise.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -80,21 +94,23 @@ def flash_attention(
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: shapes {q.shape}, {k.shape}, {v.shape}")
     b, h, n, d = q.shape
-    if not 1 <= d <= MAX_HEAD_DIM:
+    if d < 1 or n < 1 or b * h > MAX_BATCH_HEADS or -(-d // 128) > MAX_HEAD_DIM_PANELS:
         raise ValueError(
-            f"flash_attention: head dim {d} is outside the kernel's limit 1 <= D <= {MAX_HEAD_DIM}"
+            f"flash_attention: shape {tuple(q.shape)} is outside the launch grid's limits "
+            f"D >= 1, N >= 1, B·H <= {MAX_BATCH_HEADS}, ceil(D / 128) <= {MAX_HEAD_DIM_PANELS}"
         )
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
-    dp = d
-    if q.dtype == torch.bfloat16 and d % 8:
-        dp = -(-d // 8) * 8
+    per = _PER_16B[q.dtype]
+    dp = -(-d // per) * per
+    if dp != d:
         q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
-    if q.dtype == torch.bfloat16 and not all(
-        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)
-    ):
-        # The tensor-core kernel copies 16-byte rows with cp.async.
-        raise ValueError("flash_attention: bf16 needs 16-byte aligned pointers and strides")
+
+    def aligned(t):
+        return t.data_ptr() % 16 == 0 and all(s % per == 0 for s in t.stride()[:3])
+
+    if not all(aligned(t) for t in (q, k, v)):
+        raise ValueError("flash_attention: needs 16-byte aligned pointers and strides")
     out = torch.empty((b, n, h, dp), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, out) for i in range(3))

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from image_to_pointcloud_tpu_torch.models.dinov2 import run_blocks, tp_width
+from image_to_pointcloud_tpu_torch.models.dinov2 import residual, run_blocks, tp_width
 from image_to_pointcloud_tpu_torch.models.quantize import block_dense
 from image_to_pointcloud_tpu_torch.ops.resize import resize_batched
 
@@ -45,6 +45,7 @@ class BeitConfig:
     # released BEiT-L/16-384).
     window_size: int = 24
     layer_norm_eps: float = 1e-12
+    layer_scale: bool = True  # ls1 / ls2 (HF's lambda_1 / lambda_2)
     out_layers: Sequence[int] = (6, 12, 18, 24)  # 1-indexed stage outputs
     quantized: bool = False  # int8 W8A8 block matmuls (models/quantize.py)
 
@@ -148,8 +149,9 @@ class _BeitAttention(nn.Module):
 
 
 class BeitBlock(nn.Module):
-    """Pre-norm block with LayerScale; ``tp`` as :class:`.dinov2.Block`'s
-    (the relative-position table split on its head dim)."""
+    """Pre-norm block with LayerScale (none, ``ls1 = ls2 = None``, where
+    ``cfg.layer_scale`` is off); ``tp`` as :class:`.dinov2.Block`'s (the
+    relative-position table split on its head dim)."""
 
     def __init__(self, cfg: BeitConfig, tp: int = 1):
         super().__init__()
@@ -157,11 +159,12 @@ class BeitBlock(nn.Module):
         hidden = tp_width(cfg.intermediate_size, tp, "MLP width")
         self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.attn = _BeitAttention(cfg, tp)
-        self.ls1 = nn.Parameter(torch.ones(d))
         self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.fc1 = block_dense(cfg.quantized, d, hidden)
         self.fc2 = block_dense(cfg.quantized, hidden, d)
-        self.ls2 = nn.Parameter(torch.ones(d))
+        ls = cfg.layer_scale
+        self.ls1 = nn.Parameter(torch.ones(d)) if ls else None
+        self.ls2 = nn.Parameter(torch.ones(d)) if ls else None
 
     @property
     def attn_out(self) -> nn.Module:
@@ -178,8 +181,8 @@ class BeitBlock(nn.Module):
         return F.gelu(self.fc1(h))
 
     def forward(self, x, grid, index):
-        x = x + self.attn(self.norm1(x), grid, index) * self.ls1
-        return x + self.fc2(self.mlp_hidden(self.norm2(x))) * self.ls2
+        x = residual(x, self.attn(self.norm1(x), grid, index), self.ls1)
+        return residual(x, self.fc2(self.mlp_hidden(self.norm2(x))), self.ls2)
 
 
 class BeitBackbone(nn.Module):

@@ -29,7 +29,9 @@ the same family by name, with these layout changes:
   their names (the module's buffers),
 * ``block{i}`` → ``blocks.{i}``; ``patch_embed``/``patch_bias`` → the
   ``patch_embed`` Linear; ``ls1``/``ls2``, ``cls_token``, ``pos_embed``
-  and BEiT's ``rel_pos_table`` carried across as they are.
+  and BEiT's ``rel_pos_table`` carried across as they are (a BEiT tree
+  with ``layer_scale=False`` has no ``ls1``/``ls2``, and neither has the
+  port's model of that config).
 
 It imports no JAX, so it takes plain numpy.
 """

@@ -47,6 +47,12 @@ class DepthAnythingConfig:
     backbone: DinoV2Config = DinoV2Config()
     neck: DPTConfig = DPTConfig()
 
+    def with_flash_attention(self, on: bool = True) -> "DepthAnythingConfig":
+        """K1 in the encoder's attention (``on``), or the plain version on
+        every device."""
+        return dataclasses.replace(
+            self, backbone=dataclasses.replace(self.backbone, use_flash_attention=on))
+
     def with_quantized(self, on: bool = True) -> "DepthAnythingConfig":
         """Int8 W8A8 encoder matmuls; convert a f32 model's weights with
         ``models.quantize.quantize_encoder_params``."""

@@ -47,6 +47,12 @@ class DPTClassicConfig:
     keep_aspect_ratio: bool = False
     resize_method: str = "bicubic_pil"
 
+    def with_flash_attention(self, on: bool = True) -> "DPTClassicConfig":
+        """K1 in the encoder's attention (``on``), or the plain version on
+        every device."""
+        return dataclasses.replace(
+            self, backbone=dataclasses.replace(self.backbone, use_flash_attention=on))
+
     def with_quantized(self, on: bool = True) -> "DPTClassicConfig":
         """Int8 W8A8 encoder matmuls (``models.quantize``)."""
         return dataclasses.replace(self, backbone=dataclasses.replace(self.backbone, quantized=on))

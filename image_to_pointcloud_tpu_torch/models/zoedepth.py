@@ -58,6 +58,12 @@ class ZoeDepthConfig:
     pad_reflect_factor: int = 3
     resize_method: str = "linear_ac"
 
+    def with_flash_attention(self, on: bool = True) -> "ZoeDepthConfig":
+        """A no-op, as in the JAX package: BEiT's attention adds a relative
+        position bias, which K1 does not take, so it is plain torch ops on
+        every device."""
+        return self
+
     def with_quantized(self, on: bool = True) -> "ZoeDepthConfig":
         """Int8 W8A8 encoder matmuls (``models.quantize``)."""
         return dataclasses.replace(self, backbone=dataclasses.replace(self.backbone, quantized=on))

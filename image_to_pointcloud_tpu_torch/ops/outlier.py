@@ -7,9 +7,12 @@ Counterpart of ``image_to_pointcloud_tpu/ops/outlier.py`` (the scan form
 ``knn_mean_distances`` and ``statistical_outlier_mask``,
 ``outlier_keep_from_means``) and ``ops/outlier_pallas.py`` (the Pallas
 kernel). The kernel (``csrc/grid_knn.cu``) runs for CUDA tensors, at any
-k up to :data:`MAX_K` and window up to :data:`MAX_WINDOW`; CPU tensors
-take :func:`grid_knn_mean_distances_plain`, the scan form written as a
-loop over the window offsets. The exact search is plain torch on every
+k and window (k above :data:`MAX_REGISTER_K` with a window of at most
+:data:`MAX_SORTED_WINDOW`); CPU tensors take
+:func:`grid_knn_mean_distances_plain`, the scan form written as a loop
+over the window offsets. Both keep k_eff = min(k, (2·window+1)²) entries:
+the scan form's entries past the window's taps stay 1e30 and are never
+found, so the result is the same bit for bit. The exact search is plain torch on every
 device, as it is jnp in the JAX package.
 """
 
@@ -20,8 +23,8 @@ import torch
 from image_to_pointcloud_tpu_torch import cuda
 
 __all__ = [
-    "MAX_K",
-    "MAX_WINDOW",
+    "MAX_REGISTER_K",
+    "MAX_SORTED_WINDOW",
     "grid_knn_mean_distances",
     "grid_knn_mean_distances_cuda",
     "grid_knn_mean_distances_plain",
@@ -33,24 +36,32 @@ __all__ = [
 
 _BIG = 1e30
 _SENTINEL = 1e9
-# The kernel's limits (csrc/grid_knn.cu): its list holds at most 64
-# entries, its halo tile a window of at most 8.
-MAX_K = 64
-MAX_WINDOW = 8
+# The kernel's paths (csrc/grid_knn.cu): a list in registers up to
+# k_eff = 64 entries (any window); above it a warp a point ranks the taps
+# in shared memory, 2·(2·window+1)² floats a warp, so window <= 84.
+MAX_REGISTER_K = 64
+MAX_SORTED_WINDOW = 84
+# Windows above it would overflow the kernel's 32-bit offsets.
+_MAX_WINDOW = 1 << 20
 
 
 def outlier_keep_from_means(
-    means: torch.Tensor, pos: torch.Tensor, std_ratio: float = 2.0
+    means: torch.Tensor, pos: torch.Tensor, std_ratio: float = 2.0, axis: int | None = None
 ) -> torch.Tensor:
-    """Open3D RemoveStatisticalOutliers rule over the last dim of the mean
-    kNN distances: statistics over the points with ``pos`` only (Open3D's
+    """Open3D RemoveStatisticalOutliers rule on the mean kNN distances:
+    statistics over the points with ``pos`` only (Open3D's
     count_if(mean > 0)), keep = pos & mean < mean + std_ratio·std
-    (Bessel). A leading batch dim applies the rule per row."""
-    npos = pos.float().sum(dim=-1, keepdim=True)
+    (Bessel). ``axis=None`` treats ``means`` as one cloud; ``axis=-1``
+    applies the rule per leading-batch row."""
+
+    def total(x):
+        return x.sum() if axis is None else x.sum(dim=axis, keepdim=True)
+
+    npos = total(pos.float())
     zero = torch.zeros((), dtype=means.dtype, device=means.device)
-    cloud_mean = torch.where(pos, means, zero).sum(dim=-1, keepdim=True) / npos.clamp_min(1.0)
+    cloud_mean = total(torch.where(pos, means, zero)) / npos.clamp_min(1.0)
     sq = torch.where(pos, (means - cloud_mean) ** 2, zero)
-    var = sq.sum(dim=-1, keepdim=True) / (npos - 1.0).clamp_min(1.0)
+    var = total(sq) / (npos - 1.0).clamp_min(1.0)
     threshold = cloud_mean + std_ratio * torch.sqrt(var)
     return pos & (means < threshold)
 
@@ -63,48 +74,84 @@ def grid_knn_mean_distances_plain(
     included at 0); an unbatched (hh, ww, 3) gives (hh·ww,).
     Sentinel-padded borders; d² > 1e17 is no neighbour; the running top-k
     is an insertion cascade, one window offset at a time, exactly as the
-    scan form. A NaN distance (a NaN coordinate in the window, or an
-    infinite centre) propagates through ``minimum`` and ``maximum`` into
-    the whole list, so nothing is found and that point's mean is 0, as in
-    the JAX package."""
+    scan form, over k_eff = min(k, taps) entries. A NaN distance (a NaN
+    coordinate in the window, or an infinite centre) propagates through
+    ``minimum`` and ``maximum`` into the whole list, so nothing is found
+    and that point's mean is 0, as in the JAX package. Above
+    :data:`MAX_REGISTER_K` entries the cascade (k_eff·taps tensor ops) is
+    replaced by its closed form, bit for bit: the taps' values sorted
+    ascending and the first k_eff summed in that order."""
     if points_grid.dim() == 3:
         return grid_knn_mean_distances_plain(points_grid[None], k=k, window=window)[0]
     p = points_grid.float()
+    k_eff = min(k, (2 * window + 1) ** 2)
+    if k_eff > MAX_REGISTER_K:
+        return _knn_sorted(p, k_eff, window)
+    return _knn_cascade(p, k_eff, window)
+
+
+def _window_d2(p: torch.Tensor, r: int):
+    """Every window offset's squared distances, (B, hh, ww) each, in the
+    scan form's raster order (dy outer, dx inner)."""
     bsz, hh, ww, _ = p.shape
-    r = window
     pad = torch.full(
         (bsz, hh + 2 * r, ww + 2 * r, 3), _SENTINEL, dtype=p.dtype, device=p.device
     )
     pad[:, r : r + hh, r : r + ww] = p
-    big = torch.full((), _BIG, dtype=p.dtype, device=p.device)
-    best = [big.expand(bsz, hh, ww)] * k
     for dy in range(2 * r + 1):
         for dx in range(2 * r + 1):
             diff = pad[:, dy : dy + hh, dx : dx + ww] - p
             d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
-            d2 = d2 + diff[..., 2] * diff[..., 2]
-            v = torch.where(d2 > 1e17, big, d2)
-            for i in range(k):
-                lo = torch.minimum(best[i], v)
-                v = torch.maximum(best[i], v)
-                best[i] = lo
-    acc = torch.zeros((bsz, hh, ww), dtype=p.dtype, device=p.device)
+            yield d2 + diff[..., 2] * diff[..., 2]
+
+
+def _mean_of_found(best) -> torch.Tensor:
+    """The mean of the found entries' roots, summed in list order."""
+    acc = torch.zeros_like(best[0])
     cnt = torch.zeros_like(acc)
     for b in best:
         found = b < _BIG * 0.5
         acc = acc + torch.where(found, torch.sqrt(b.clamp_min(0.0)), 0.0)
         cnt = cnt + found.float()
-    return (acc / cnt.clamp_min(1.0)).reshape(bsz, hh * ww)
+    return acc / cnt.clamp_min(1.0)
+
+
+def _knn_cascade(p: torch.Tensor, k: int, r: int) -> torch.Tensor:
+    bsz, hh, ww, _ = p.shape
+    big = torch.full((), _BIG, dtype=p.dtype, device=p.device)
+    best = [big.expand(bsz, hh, ww)] * k
+    for d2 in _window_d2(p, r):
+        v = torch.where(d2 > 1e17, big, d2)
+        for i in range(k):
+            lo = torch.minimum(best[i], v)
+            v = torch.maximum(best[i], v)
+            best[i] = lo
+    return _mean_of_found(best).reshape(bsz, hh * ww)
+
+
+def _knn_sorted(p: torch.Tensor, k: int, r: int) -> torch.Tensor:
+    """The cascade's result in closed form: without a NaN its list is the
+    k smallest values sorted, so sort them; a NaN distance gives 0."""
+    bsz, hh, ww, _ = p.shape
+    d2 = torch.stack(list(_window_d2(p, r)), dim=-1)
+    poisoned = torch.isnan(d2).any(dim=-1)
+    v = torch.where(d2 > 1e17, torch.full((), _BIG, dtype=p.dtype, device=p.device), d2)
+    best = torch.sort(v, dim=-1).values[..., :k]
+    mean = _mean_of_found(best.unbind(-1))
+    return torch.where(poisoned, 0.0, mean).reshape(bsz, hh * ww)
 
 
 def grid_knn_mean_distances_cuda(
     points_grid: torch.Tensor, *, k: int = 20, window: int = 4
 ) -> torch.Tensor:
     """The CUDA kernel: (B, hh, ww, 3) f32 → (B, hh·ww), or (hh, ww, 3) →
-    (hh·ww,); 1 <= k <= :data:`MAX_K`, 1 <= window <= :data:`MAX_WINDOW`.
+    (hh·ww,); k >= 1, window >= 1, and window <= :data:`MAX_SORTED_WINDOW`
+    where k_eff = min(k, (2·window+1)²) is above :data:`MAX_REGISTER_K`.
 
     (k, window) = (20, 4), the served pair, runs the kernel redesigned for
-    it; any other pair runs the general kernel beside it. The input may be
+    it; any other pair the general kernel beside it (a list of up to 64
+    entries in registers) or, above 64 entries, the sorted one (a warp a
+    point). The input may be
     any strided view whose row stride is ``ww`` point strides — e.g.
     ``packed[:, :3].transpose(1, 2).reshape(B, hh, ww, 3)`` of the planar
     (B, 8, N) point buffer, which the kernel reads in place. Bit-identical
@@ -118,10 +165,13 @@ def grid_knn_mean_distances_cuda(
             f"grid_knn: needs a CUDA float32 tensor, got {points_grid.dtype} "
             f"on {points_grid.device}"
         )
-    if not (1 <= k <= MAX_K and 1 <= window <= MAX_WINDOW):
+    k_eff = min(k, (2 * window + 1) ** 2) if window >= 1 else k
+    if not (k >= 1 and 1 <= window <= _MAX_WINDOW
+            and (k_eff <= MAX_REGISTER_K or window <= MAX_SORTED_WINDOW)):
         raise ValueError(
             f"grid_knn: k={k}, window={window} is outside the kernel's limits "
-            f"1 <= k <= {MAX_K}, 1 <= window <= {MAX_WINDOW}"
+            f"k >= 1, 1 <= window <= {_MAX_WINDOW}, and window <= {MAX_SORTED_WINDOW} "
+            f"where min(k, (2·window+1)²) > {MAX_REGISTER_K}"
         )
     if points_grid.dim() == 3:
         return grid_knn_mean_distances_cuda(points_grid[None], k=k, window=window)[0]
@@ -164,7 +214,7 @@ def grid_statistical_outlier_mask(
     per row. The tensor's device picks K2 or the plain version, as the
     JAX package's ``use_pallas`` picks its search."""
     means = grid_knn_mean_distances(points_grid, k=k, window=window)
-    return outlier_keep_from_means(means, means > 0.0, std_ratio)
+    return outlier_keep_from_means(means, means > 0.0, std_ratio, axis=-1)
 
 
 def knn_mean_distances(

@@ -564,17 +564,22 @@ def split_rows(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
 # ---------- across processes ----------
 
 
-def init_distributed(*, device: "str | torch.device | None" = None, **kwargs) -> None:
+def init_distributed(*, device: "str | torch.device" = "cuda", **kwargs) -> None:
     """Multi-process bring-up: ``torch.distributed.init_process_group``
-    with gloo for CPU tensors and NCCL for CUDA ones (``device``: default
-    CUDA where it is available). Nothing tells a process of its cluster:
-    pass ``init_method`` (``tcp://<host>:<port>``), ``world_size`` and
+    with NCCL for CUDA (the default ``device``, which raises where CUDA is
+    not available) and gloo only when the caller asks for the CPU
+    (``device="cpu"``). Nothing tells a process of its cluster: pass
+    ``init_method`` (``tcp://<host>:<port>``), ``world_size`` and
     ``rank``."""
     import torch.distributed as dist
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "init_distributed: device 'cuda' requested but CUDA is not available "
+            "(pass device='cpu' for gloo on the CPU)"
+        )
+    backend = "nccl" if device.type == "cuda" else "gloo"
     dist.init_process_group(backend=kwargs.pop("backend", backend), **kwargs)
 
 

@@ -28,13 +28,28 @@ brings the result to the host and splits it per image.
 
 The dummy models' graphs (:func:`dummy_point_cloud_graph`,
 :func:`demo_depth_map_graph`) are plain torch ops on the service's device.
+
+f32 on CUDA means f32: torch runs f32 convolutions through cuDNN in TF32
+by default (``torch.backends.cudnn.allow_tf32``), and a caller may have
+turned TF32 on for matmuls. A pipeline over an f32 model on CUDA runs each
+forward inside :func:`exact_f32`, which turns both flags off and restores
+them afterwards; a bf16 model's forward is left as it is. The flags are
+process-wide, not per thread: :func:`exact_f32` counts the forwards inside
+it under a lock, so the first to enter saves the flags and the last to
+leave restores them, and concurrent f32 forwards (the server's executor
+threads) never see them restored early. While any f32 forward runs, other
+threads' f32 work runs without TF32 too; bf16 work is unaffected. The
+flags are read when an operation is enqueued, so the scope covers the
+host's enqueue of the forward, which is all that decides the kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
+import threading
 
 import numpy as np
 import torch
@@ -96,6 +111,7 @@ __all__ = [
     "demo_depth_map_graph",
     "depth_to_packed_points",
     "dummy_point_cloud_graph",
+    "exact_f32",
     "plan_jpeg_input",
     "plan_sparse_batch",
 ]
@@ -430,6 +446,36 @@ def depth_to_packed_points(
     )[0]
 
 
+_TF32_LOCK = threading.Lock()
+_tf32_users = 0
+_tf32_saved: tuple[bool, bool] = (False, False)
+
+
+@contextlib.contextmanager
+def exact_f32(on: bool = True):
+    """TF32 off for cuDNN convolutions and CUDA matmuls inside the scope
+    (when ``on``), restored when the last concurrent scope leaves."""
+    global _tf32_users, _tf32_saved
+    if not on:
+        yield
+        return
+    with _TF32_LOCK:
+        if _tf32_users == 0:
+            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_users += 1
+    try:
+        yield
+    finally:
+        with _TF32_LOCK:
+            _tf32_users -= 1
+            if _tf32_users == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _tf32_saved
+
+
 class DepthPipeline:
     """The depth→point-cloud pipeline over one model of any family on one
     device (the model's own device and dtype: bf16 on CUDA for serving,
@@ -467,6 +513,9 @@ class DepthPipeline:
     ):
         self.cfg = model.cfg
         self.mesh = mesh
+        # The compute dtype: the first floating parameter's (an int8
+        # encoder keeps f32 or bf16 around its int8 weights).
+        self.dtype = next(t.dtype for t in model.parameters() if t.is_floating_point())
         self.meshed, self._slots = self._place(model.eval(), mesh, pipe_microbatches)
         if mesh is not None:
             from image_to_pointcloud_tpu_torch.parallel.sharding import without_blocks
@@ -474,6 +523,8 @@ class DepthPipeline:
             model = without_blocks(model)
         self.model = model
         self.device = self._slots[0][0]
+        # f32 on CUDA runs without TF32 (the module docstring).
+        self.exact_f32 = self.device.type == "cuda" and self.dtype == torch.float32
         (
             self.model_target,
             self.size_multiple,
@@ -527,10 +578,11 @@ class DepthPipeline:
     def _run_slots(self, rows, in_hw, options, want_preview, b, **kw):
         """``rows(d, device) -> (img, scales)`` of each data slot → the
         batch's (out, preview) on the first slot, cut back to ``b`` rows."""
-        outs = [
-            self._forward(*rows(d, dev), in_hw, options, want_preview, model=fwd, **kw)
-            for d, (dev, fwd) in enumerate(self._slots)
-        ]
+        with exact_f32(self.exact_f32):
+            outs = [
+                self._forward(*rows(d, dev), in_hw, options, want_preview, model=fwd, **kw)
+                for d, (dev, fwd) in enumerate(self._slots)
+            ]
         if len(outs) == 1:
             return outs[0]
         out = torch.cat([o.to(self.device) for o, _ in outs])[:b]
@@ -1021,11 +1073,11 @@ def dummy_point_cloud_graph(
 
 @torch.inference_mode()
 def demo_depth_map_graph(
-    image_rgb_u8: np.ndarray, device: "str | torch.device" = "cuda"
+    image_u8_rgb: np.ndarray, device: "str | torch.device" = "cuda"
 ) -> np.ndarray:
     """Fake depth-map preview for the dummy models (reference
     backend/app.py:589-607): gray → 15×15 Gaussian blur → inverted →
     PLASMA, as (H, W, 3) u8."""
-    gray = _gray(torch.from_numpy(np.array(image_rgb_u8)).to(device).float())
+    gray = _gray(torch.from_numpy(np.array(image_u8_rgb)).to(device).float())
     inv = (255.0 - torch.round(gaussian_blur(gray, 15))).to(torch.uint8)
     return PLASMA_RGB[inv.cpu().numpy()]

@@ -1,8 +1,16 @@
 """Model manager: lazily build and memoize one pipeline per model name.
 
-Counterpart of ``image_to_pointcloud_tpu/serve/models.py``. Models run in
-bf16 on CUDA and f32 on the CPU, as the JAX server runs bf16 on an
-accelerator and f32 on the CPU. Every preset of every family is served
+Counterpart of ``image_to_pointcloud_tpu/serve/models.py``, with its
+``use_bf16`` and ``use_flash_attention``. Models run in bf16 on CUDA when
+``use_bf16`` (the default) and in f32 otherwise, on the CPU always, as the
+JAX server runs bf16 only on an accelerator. An f32 model on CUDA is f32
+through and through: its pipeline turns TF32 off around each forward
+(:func:`~..pipeline.graph.exact_f32`), and its attention is K1's f32
+(3xTF32) kernel. ``use_flash_attention=None`` means K1 on CUDA (and the
+plain version on the CPU, by the tensor's device); ``False`` builds the
+encoders with ``use_flash_attention=False``, the plain attention on every
+device; ZoeDepth's BEiT has no K1 either way. Every preset of every
+family is served
 (:func:`~image_to_pointcloud_tpu_torch.models.depth_anything.build_model`).
 Weights come from ``checkpoint_dir`` (or ``IPC_TPU_CHECKPOINT_DIR``): the
 port's own checkpoint ``<dir>/<name>/torch/checkpoint.pt`` (written by the
@@ -21,7 +29,9 @@ no pipeline.
 ``int8=True`` (or ``IPC_TPU_INT8=1``) serves the int8 W8A8 encoder
 (``models/quantize.py``): the f32 weights are quantized before the model
 moves to its device and dtype, as the JAX package quantizes its f32
-params. Refused with an error rather than served as something else:
+params; with ``use_bf16=False`` its activations around the int8 GEMMs are
+f32. The mesh path takes the same dtype. Refused with an error rather
+than served as something else:
 orbax checkpoints (``<dir>/<name>/orbax``, written by the JAX package's
 ``train/``), which PyTorch cannot read.
 """
@@ -64,6 +74,9 @@ class ModelManager:
         model_target: "int | tuple[int, int] | None" = None,
         int8: bool | None = None,
         mesh=None,
+        *,
+        use_bf16: bool = True,
+        use_flash_attention: bool | None = None,
     ):
         # Int8 W8A8 encoder matmuls: by argument, else IPC_TPU_INT8 (1,
         # true or yes), as the JAX server reads it.
@@ -83,7 +96,13 @@ class ModelManager:
         self.mesh = mesh
         if mesh is not None:
             self.device = mesh.device()  # the first slot: where results gather
-        self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        # bf16 only where asked and on CUDA, as the JAX server's use_bf16
+        # holds only on an accelerator.
+        self.use_bf16 = use_bf16 and self.device.type == "cuda"
+        self.dtype = torch.bfloat16 if self.use_bf16 else torch.float32
+        # None: K1 wherever the tensors are on CUDA; False: the plain
+        # attention on every device.
+        self.use_flash = use_flash_attention is not False
         self.checkpoint_dir = checkpoint_dir or os.environ.get(CHECKPOINT_ENV)
         # The family's native target when None (518 for DA, 384 for
         # classic DPT, (384, 512) for ZoeDepth).
@@ -150,7 +169,7 @@ class ModelManager:
     def _build(self, name: str) -> DepthPipeline:
         if name in DUMMY_MODELS:
             raise ValueError(f"{name} is a dummy model with no pipeline")
-        cfg = preset(name)
+        cfg = preset(name).with_flash_attention(self.use_flash)
         model = self.load_model(name, cfg)
         if self.int8:
             # Quantized from the f32 weights, before the cast to the

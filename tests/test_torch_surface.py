@@ -8,6 +8,11 @@ stands in ``RENAMED`` (the port's name for it) or ``NOT_PORTED`` (with the
 reason). The package-level exports of ``models`` and ``ops`` are held to
 the JAX package's.
 
+Parameters: for every public function, class ``__init__`` and config
+dataclass that the surface pairs, each JAX parameter or field has a
+counterpart of the same name in the port, or stands in
+``PARAMS_NOT_PORTED`` with the reason the port has none.
+
 Parity, the same numpy inputs from a seed through the JAX function and
 its port (the JAX side as its own tests run it). Tolerances:
 
@@ -69,6 +74,107 @@ NOT_PORTED = {
 }
 
 
+# Why a JAX parameter has no counterpart of its name in the port.
+_TILING = "Pallas tiling or interpret mode: a CUDA kernel has neither"
+_DTYPE = "a dtype field: the port casts a module with .to(dtype)"
+_MODULE = "a Flax cfg/params tree: the port takes an nn.Module or a state_dict"
+_DEVICE = "use_pallas: the port picks the kernel by the tensor's device"
+_LINEAR = ("a Flax Dense's constructor (features, use_bias, name, dtype): the port's "
+           "nn.Linear takes in/out features and bias")
+_SHARDS = "a sharded jax.Array: the port passes each slot's shard (qs, ks, vs)"
+PARAMS_NOT_PORTED = {
+    **{f"models/attention.py:flash_attention:{p}": _TILING
+       for p in ("block_q", "block_k", "interpret", "head_pack")},
+    "models/attention.py:multi_head_attention:interpret": _TILING,
+    "ops/outlier_pallas.py:grid_knn_mean_distances_pallas:tile": _TILING,
+    "ops/outlier_pallas.py:grid_knn_mean_distances_pallas:interpret": _TILING,
+    "ops/unproject.py:unproject_pallas:interpret": _TILING,
+    **{f"models/{m}:{c}:dtype": _DTYPE for m, c in [
+        ("beit.py", "BeitConfig"), ("dinov2.py", "DinoV2Config"), ("dpt.py", "DPTConfig"),
+        ("dpt_classic.py", "DPTClassicConfig"), ("segformer.py", "SegformerConfig"),
+        ("vit.py", "ViTConfig"), ("zoedepth.py", "ZoeDepthConfig")]},
+    "models/dinov2.py:DinoV2Config:flash_min_seq":
+        "a TPU measurement's gate, left out on purpose (ROADMAP.md)",
+    "models/vit.py:ViTConfig:flash_min_seq":
+        "a TPU measurement's gate, left out on purpose (ROADMAP.md)",
+    **{f"models/convert.py:{f}:state_dict": "the same HF state dict, named sd in the port"
+       for f in ("convert_depth_anything", "convert_dpt_classic", "convert_zoedepth",
+                 "convert_segformer")},
+    **{f"models/quantize.py:block_dense:{p}": _LINEAR
+       for p in ("features", "dtype", "name", "use_bias")},
+    **{f"models/quantize.py:QuantDense:{p}": _LINEAR for p in ("features", "dtype", "use_bias")},
+    "models/quantize.py:quantize_dense_params:dense":
+        "a Flax {kernel, bias} dict: the port takes the Linear's weight and bias",
+    "models/quantize.py:quantize_encoder_params:params": _MODULE,
+    "ops/outlier.py:grid_statistical_outlier_mask:use_pallas": _DEVICE,
+    **{f"parallel/context.py:{f}:{p}": _SHARDS
+       for f in ("sequence_sharded_attention", "ring_attention") for p in "qkv"},
+    "parallel/pipeline_par.py:stack_block_params:params": _MODULE,
+    "parallel/pipeline_par.py:stack_block_params:prefix":
+        "the Flax tree's block-name prefix: the port takes the blocks themselves",
+    "parallel/pipeline_par.py:make_stage_fn:block_module":
+        "a Flax block class: the port takes the apply function over nn.Module blocks",
+    "parallel/pipeline_par.py:make_tapped_stage_fn:block_module":
+        "a Flax block class: the port takes the apply function over nn.Module blocks",
+    "parallel/pipeline_par.py:build_stage_params:params": _MODULE,
+    "parallel/pipeline_par.py:build_beit_stage_params:params": _MODULE,
+    **{f"parallel/pipeline_par.py:{f}:{p}": _MODULE
+       for f in ("pipelined_depth_apply", "pipelined_dpt_classic_apply",
+                 "pipelined_zoedepth_apply") for p in ("cfg", "params")},
+    "parallel/sharding.py:param_sharding_rules:path":
+        "a pytree path ('a/b/kernel'): the port takes a state_dict name ('a.b.weight')",
+    "parallel/sharding.py:shard_params:params": _MODULE,
+    **{f"pipeline/advanced.py:{c}:{p}": _MODULE
+       for c in ("MetricPipeline", "HighResPipeline", "VideoPipeline") for p in ("cfg", "params")},
+    "pipeline/graph.py:DepthPipeline:cfg": _MODULE,
+    "pipeline/graph.py:DepthPipeline:params": _MODULE,
+    "serve/matting.py:MatteModel:params": _MODULE,
+    "train/trainer.py:Trainer:params": _MODULE,
+}
+
+
+def _parameters(path: Path) -> dict[str, list[str]]:
+    """Public top-level function → its parameters; public class → its
+    ``__init__``'s parameters, or (no ``__init__``) its annotated fields."""
+    out = {}
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if getattr(node, "name", "_").startswith("_"):
+            continue
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = _arg_names(node.args)
+        elif isinstance(node, ast.ClassDef):
+            init = [b for b in node.body if isinstance(b, ast.FunctionDef) and b.name == "__init__"]
+            fields = [b.target.id for b in node.body
+                      if isinstance(b, ast.AnnAssign) and isinstance(b.target, ast.Name)]
+            if init:
+                out[node.name] = [a for a in _arg_names(init[0].args) if a != "self"]
+            elif fields:
+                out[node.name] = fields
+    return out
+
+
+def _arg_names(a: ast.arguments) -> list[str]:
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    return names + [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+
+
+def _paired_signatures() -> list[str]:
+    """"module:name" of every JAX function or class whose port counterpart
+    is a function or class too."""
+    pairs = []
+    for rel in JAX_MODULES:
+        if rel in NOT_PORTED:
+            continue
+        for name in _parameters(JAX_PKG / rel):
+            key = f"{rel}:{name}"
+            port_rel, port_name = RENAMED.get(key, key).split(":")
+            if key in NOT_PORTED or not (PORT_PKG / port_rel).exists():
+                continue
+            if port_name in _parameters(PORT_PKG / port_rel):
+                pairs.append(key)
+    return pairs
+
+
 def _module_names(path: Path) -> tuple[list[str] | None, list[str], set[str]]:
     """(``__all__`` or None, public top-level functions and classes, every
     name the module binds at its top level, in ``if``/``try`` too)."""
@@ -128,6 +234,30 @@ def test_renamed_and_not_ported_name_real_jax_names():
         if (PORT_PKG / rel).exists():
             assert name not in _module_names(PORT_PKG / rel)[2], key
     assert len(NOT_PORTED) == 4
+
+
+@pytest.mark.parametrize("key", _paired_signatures())
+def test_parameters_have_a_counterpart(key):
+    rel, name = key.split(":")
+    port_rel, port_name = RENAMED.get(key, key).split(":")
+    ours = _parameters(PORT_PKG / port_rel)[port_name]
+    missing = [p for p in _parameters(JAX_PKG / rel)[name]
+               if p not in ("self", "cls") and p not in ours
+               and f"{key}:{p}" not in PARAMS_NOT_PORTED]
+    assert not missing, f"{key}: the port has no {missing}"
+
+
+def test_params_not_ported_name_real_gaps():
+    """Each allowlisted parameter is a JAX parameter that the port's
+    counterpart really lacks."""
+    pairs = set(_paired_signatures())
+    for entry, reason in PARAMS_NOT_PORTED.items():
+        rel, name, param = entry.split(":")
+        key = f"{rel}:{name}"
+        assert key in pairs and reason, entry
+        assert param in _parameters(JAX_PKG / rel)[name], entry
+        port_rel, port_name = RENAMED.get(key, key).split(":")
+        assert param not in _parameters(PORT_PKG / port_rel)[port_name], entry
 
 
 @pytest.mark.parametrize("pkg", ["models", "ops"])

@@ -2,7 +2,8 @@
 on one card.
 
 Times K1 (``flash_attention``) at DA-V2-Small's (1, 6, 1370, 64) and
-classic DPT-Large's (1, 16, 577, 64) in bf16, and K2 (the grid kNN at k =
+classic DPT-Large's (1, 16, 577, 64) in bf16 and in f32 (the served f32
+path, ``ModelManager(use_bf16=False)``), and K2 (the grid kNN at k =
 20, window = 4) on the 259² random cube, as ``chip_smoke.py`` times them
 (a CUDA graph of 20 calls, the median of 5 replays, per call), and prints
 one JSON line with the card's name and power limit. The port is imported
@@ -37,9 +38,12 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"port": str(Path(port.__file__).parent)}
-    for shape in [(1, 6, 1370, 64), (1, 16, 577, 64)]:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
-        out[f"K1 {shape} bf16 ms"] = device_time_ms(lambda: flash_attention(q, k, v))
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in [(1, 6, 1370, 64), (1, 16, 577, 64)]:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            out[f"K1 {shape} {str(dtype)[6:]} ms"] = device_time_ms(
+                lambda: flash_attention(q, k, v))
     pts = knn_cube(gen, (1, 259, 259, 3))
     out["K2 cube (1, 259, 259, 3) ms"] = device_time_ms(lambda: grid_knn_mean_distances_cuda(pts))
     out["card"] = subprocess.run(
