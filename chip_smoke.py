@@ -11,14 +11,15 @@ Phases (any failure exits non-zero, and the result lines are not printed):
    shapes (1, 6, 1370, 64) and (1, 16, 577, 64); at the head dims no
    preset serves, in bf16 and f32: (1, 6, 1370, 32) and (1, 4, 1370, 128)
    (the kD = 32 and 128 instances), (1, 6, 1370, 40) and (1, 8, 577, 80)
-   (D below its instance's width), and above 128 (O in 128-column panels)
+   (D below its instance's width), and above 128 (O in 128-column panels,
+   S once a key tile: bf16 warpgroups of a CTA, f32 CTAs of a cluster)
    (1, 4, 577, 160), (1, 4, 1370, 192), (1, 2, 1370, 256) and (1, 2, 300,
-   320). Timed at the serving shapes and at each of those: device time,
+   320), with (1, 2, 577, 136) and (1, 3, 129, 392) checked only. Timed
+   at the serving shapes and at each of the four: device time,
    host-inclusive time, the plain version's, and
    ``scaled_dot_product_attention``'s on the same tensors (the yardstick,
    never called by the port), beside the bound of the design that runs
-   (bf16 tensor cores, 3xTF32, or one TF32 product for bf16 above D =
-   128) and, for f32, the FP32-core bound.
+   (bf16 tensor cores, or 3xTF32) and, for f32, the FP32-core bound.
 4. K2 grid-kNN vs its plain version, bit for bit, on two inputs at
    (1, 259, 259, 3) — 518² at medium density, one request: points
    uniform in a cube (the worst case: grid position says nothing about
@@ -34,10 +35,12 @@ Phases (any failure exits non-zero, and the result lines are not printed):
    61 taps after the first 20 that insert into the top-20 list, per lane
    and per 8×4 warp (replayed in plain torch). The general kernel at
    (k, window) = (10, 7), (64, 8) and (1, 1), with taps from global
-   memory at (20, 12) and (64, 16), and the sorted kernel (k_eff > 64) at
-   (100, 5), (300, 8) and (500, 12), bit for bit on the 259² cube, the
-   surface and the NaN/inf grid; (10, 7) timed on both 259² inputs and
-   the five new pairs on the cube, beside their bounds. The kernels line
+   memory at (20, 12) and (64, 16), and the sorted kernels (k_eff > 64, a
+   bitonic sort a warp a point) at (100, 5), (300, 8), (500, 12), (121,
+   5), (1000, 15) (in registers) and (100, 16) (in shared memory), bit for
+   bit on the 259² cube, the surface and the NaN/inf grid; (10, 7) timed
+   on both 259² inputs and the other pairs but (64, 8), (1, 1) and (121,
+   5) on the cube, beside their bounds. The kernels line
    reports the cube at (20, 4), as every PR has; the rest rides along.
 5. K3 unproject vs its plain version, bit for bit, with u8 and f32
    images: (1, 518, 518) step 2 (one request), batch 2, odd N at steps
@@ -51,9 +54,11 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 8. the slice on the card vs the slice on the CPU, for tiny configs of
    the three families (Depth-Anything-V2, classic DPT, ZoeDepth) with
    64-wide heads, same weights, f32, TF32 off, through the f32 return
-   and through the quantized bundle; then the same over their int8 W8A8
-   encoders. Each result is logged beside the host CPU's capability, the
-   f32 return's RMSE and the bundle codec's own RMSE on the CPU.
+   and through the quantized bundle (its bytes equal to the CPU's codec
+   on the card's depth, that depth near the CPU's); then the same over
+   their int8 W8A8 encoders. Each result is logged beside the host CPU's
+   capability, the f32 return's RMSE, the bundle codec's own RMSE on the
+   CPU and the decoded bundle's RMSE between two CPU runs.
 9. the advanced pipelines (metric, tiled high resolution, video) on a
    tiny Depth-Anything, card vs CPU, on both transfer contracts; the
    voxel op card vs CPU on one 200,000-point cloud.
@@ -195,9 +200,9 @@ K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # JPEG decode: card vs CPU within 1 level (f32 GEMMs sum in another
 # order); vs PIL within libjpeg's integer-IDCT tolerance.
 JPEG_CPU_TOL, JPEG_PIL_TOL = 1.0, 3.0
-# Slice, card vs CPU (the port's CPU parity tolerances; ZoeDepth through
-# the quantized bundle, and its int8 encoder through either return: the
-# larger of SLICE_RMSE and the codec's own error, see _slice_card_vs_cpu).
+# Slice, card vs CPU (the port's CPU parity tolerances; ZoeDepth's int8
+# encoder: the larger of SLICE_RMSE and the codec's own error, see
+# _slice_card_vs_cpu).
 SLICE_KEEP_AGREE, SLICE_RMSE = 0.995, 1e-3
 # Full-width raw model output, card (bf16) vs CPU (f32), max-normalized:
 # bf16 alone (the same model in bf16 on the CPU) differs from f32 by
@@ -290,22 +295,23 @@ def _timed_kernel(name: str, kernel, plain, library=None) -> dict:
 # K1 at head dims other than the served 64 (no preset serves one): the
 # kD = 32 and 128 instances, and D below its instance's width (40, 80).
 K1_HEAD_DIM_SHAPES = [(1, 6, 1370, 32), (1, 6, 1370, 40), (1, 8, 577, 80), (1, 4, 1370, 128)]
-# Above D = 128: O in 128-column panels, the logits recomputed for each.
+# Above D = 128: O in 128-column panels, one a warpgroup, the logits once a
+# key tile per group of panels (up to 384 columns in bf16, 1024 in f32).
 K1_WIDE_SHAPES = [(1, 4, 577, 160), (1, 4, 1370, 192), (1, 2, 1370, 256), (1, 2, 300, 320)]
+# Checked, not timed: D a multiple of 8 but not of 16, and D past 384 (a
+# second group of panels) with B·H = 3.
+K1_WIDE_CHECKED = [(1, 2, 577, 136), (1, 3, 129, 392)]
 # The f32 kernel is 3xTF32: three TF32 products for each f32 one.
 TF32_TC_FLOP_S = 494.7e12
 
 
-def _k1_bound(shape, dtype, nbytes: float, flops: float) -> dict:
-    """The bound of the design that runs: bf16 up to D = 128 on the bf16
-    tensor cores; f32 in 3xTF32 (3·flops on the TF32 tensor cores); bf16
-    above D = 128 in one TF32 product (bf16 is exact in tf32). Every f32
+def _k1_bound(dtype, nbytes: float, flops: float) -> dict:
+    """The bound of the design that runs: bf16 on the bf16 tensor cores (at
+    every D); f32 in 3xTF32 (3·flops on the TF32 tensor cores). Every f32
     row also carries the FP32-core bound, the SIMT design's."""
     if dtype == torch.float32:
         return {**bound(nbytes, 3 * flops, TF32_TC_FLOP_S), "bound_design": "3xTF32",
                 "fp32_core_bound_ms": bound(nbytes, flops, F32_FLOP_S)["bound_ms"]}
-    if shape[-1] > 128:
-        return {**bound(nbytes, flops, TF32_TC_FLOP_S), "bound_design": "TF32 (bf16 operands)"}
     return {**bound(nbytes, flops, BF16_TC_FLOP_S), "bound_design": "bf16 tensor cores"}
 
 
@@ -319,9 +325,10 @@ def phase_k1() -> dict:
               ((1, 3, 65, 64), bf16), ((2, 6, 1370, 64), f32), ((1, 6, 1370, 64), f32),
               ((1, 16, 577, 64), f32)]
     head_dims = [(s, dt) for s in K1_HEAD_DIM_SHAPES + K1_WIDE_SHAPES for dt in (bf16, f32)]
+    checked = [(s, dt) for s in K1_WIDE_CHECKED for dt in (bf16, f32)]
     timed_served = {((1, 6, 1370, 64), bf16), ((1, 16, 577, 64), bf16),
                     ((1, 6, 1370, 64), f32), ((1, 16, 577, 64), f32)}
-    for shape, dtype in served + head_dims:
+    for shape, dtype in served + head_dims + checked:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
         scale = shape[-1] ** -0.5
         o = flash_attention(q, k, v)
@@ -342,7 +349,7 @@ def phase_k1() -> dict:
                    **_timed_kernel(name, lambda: flash_attention(q, k, v),
                                    lambda: attention_plain(q, k, v, scale),
                                    lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
-                   **_k1_bound(shape, dtype, nbytes, flops)}
+                   **_k1_bound(dtype, nbytes, flops)}
             fp32 = (f", FP32-core bound {res['fp32_core_bound_ms']:.5f} ms"
                     if dtype == f32 else "")
             log(f"{name}: {flops / 1e9:.3f} GFLOP, {b * h * n * n / 1e6:.2f} M "
@@ -462,11 +469,14 @@ def _k2_check(name: str, pts: torch.Tensor, k: int = 20, window: int = 4) -> flo
 
 # K2 at (k, window) pairs other than the served (20, 4): the JAX tests'
 # (10, 7), the register list's largest (64, 8) and the smallest (1, 1); the
-# sorted kernel (k_eff = min(k, taps) > 64: (100, 5), (300, 8) with k_eff =
-# 289, (500, 12)) and windows past the halo tile ((20, 12), (64, 16)).
-K2_PAIRS = [(10, 7), (64, 8), (1, 1), (100, 5), (300, 8), (20, 12), (64, 16), (500, 12)]
+# sorted kernels (k_eff = min(k, taps) > 64: (100, 5), (300, 8) with k_eff =
+# 289, (500, 12), k_eff = T at (121, 5), the largest register sort at
+# (1000, 15), the shared-memory sort at (100, 16)) and windows past the
+# halo tile ((20, 12), (64, 16)).
+K2_PAIRS = [(10, 7), (64, 8), (1, 1), (100, 5), (300, 8), (20, 12), (64, 16), (500, 12),
+            (121, 5), (1000, 15), (100, 16)]
 # Timed beside (10, 7): the new paths, on the random cube.
-K2_TIMED_PAIRS = {(100, 5), (300, 8), (20, 12), (64, 16), (500, 12)}
+K2_TIMED_PAIRS = {(100, 5), (300, 8), (20, 12), (64, 16), (500, 12), (1000, 15), (100, 16)}
 
 
 def _k2_pairs(gen: torch.Generator, surface: torch.Tensor) -> list[dict]:
@@ -896,6 +906,20 @@ def phase_full_width_f32(out_dir: str, cpu_stages: dict) -> tuple[dict[str, int]
     return counts, per_request
 
 
+def _host_kernels() -> str:
+    """What picks the host's and the card's kernels beyond torch's CPU
+    capability: the CPU's AMX and AVX512-BF16 flags, the CPU threads, and
+    cuDNN's version (two hosts with the same capability have given CPU
+    references that differ, see PERF.md §7)."""
+    try:
+        flags = next((line.split(":", 1)[1].split() for line in open("/proc/cpuinfo")
+                      if line.startswith("flags")), [])
+    except OSError:
+        flags = []
+    return (f"amx {'amx_tile' in flags}, avx512_bf16 {'avx512_bf16' in flags}, "
+            f"{torch.get_num_threads()} threads, cuDNN {torch.backends.cudnn.version()}")
+
+
 def _rmse(a, b) -> float:
     """Per-point RMSE of two results' packed points, on points both keep."""
     both = (a.packed[6] > 0.5) & (b.packed[6] > 0.5)
@@ -903,48 +927,91 @@ def _rmse(a, b) -> float:
 
 
 def _slice_card_vs_cpu(family: str, cpu_model, gpu_model, target) -> None:
+    """One tiny model's slice on the card against the same slice on the
+    CPU, through the f32 return and through the quantized bundle.
+
+    Both returns: the same point count, colours exact, keep masks agreeing
+    on ``SLICE_KEEP_AGREE`` of the points, previews within one level. The
+    f32 return: point RMSE below ``SLICE_RMSE``. The bundle: the card's
+    bytes equal the CPU's codec on the card's own inputs (the strided
+    normalized depth, keep mask and colours that entered it), and that
+    depth is within ``SLICE_RMSE`` of the CPU's, in the points' units
+    (times the depth scale). The decoded bundles are not held to each
+    other: two f32 runs of one model whose depths differ by a few ulps
+    flip a handful of 8-bit tile codes, and one flip moves the RMSE by
+    ~3e-4. That RMSE is logged beside the same figure between the CPU at
+    its threads and at one thread (the noise floor of f32 itself)."""
     from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
+
+    class Recording(DepthPipeline):
+        """Keeps the inputs and bytes of its last device→host bundle."""
+
+        def _bundle(self, dn_s, keep, pix, *, ycc):
+            out = super()._bundle(dn_s, keep, pix, ycc=ycc)
+            self.last_bundle = (dn_s, keep, pix, ycc, out)
+            return out
+
+    def run(model, quantized):
+        pipe = Recording(model, model_target=target, quantized_transfer=quantized)
+        return pipe, pipe.run(img, depth_scale=15.0)
 
     img = np.random.default_rng(0).integers(0, 256, (200, 260, 3), dtype=np.uint8)
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    threads = torch.get_num_threads()
     try:
-        cpu_runs = {q: DepthPipeline(cpu_model, model_target=target, quantized_transfer=q).run(
-            img, depth_scale=15.0) for q in (False, True)}
-        codec_rmse = _rmse(cpu_runs[True], cpu_runs[False])
-        gpu_runs = {q: DepthPipeline(gpu_model, model_target=target, quantized_transfer=q).run(
-            img, depth_scale=15.0) for q in (False, True)}
-        f32_rmse = _rmse(cpu_runs[False], gpu_runs[False])
+        cpu_pipes, cpu_runs = zip(*(run(cpu_model, q) for q in (False, True)))
+        codec_rmse = _rmse(cpu_runs[1], cpu_runs[0])
+        torch.set_num_threads(1)
+        try:
+            cpu_noise = _rmse(cpu_runs[1], run(cpu_model, True)[1])
+        finally:
+            torch.set_num_threads(threads)
+        gpu_pipes, gpu_runs = zip(*(run(gpu_model, q) for q in (False, True)))
+        f32_rmse = _rmse(cpu_runs[0], gpu_runs[0])
+        tol = SLICE_RMSE
+        if family == "ZoeDepth int8":
+            # The random-init ZoeDepth map spans only ±8 % of its mean
+            # (the others span their whole range), so the depth
+            # normalization scales its card-vs-CPU differences up ~9x and
+            # the int8 encoder's activation codes flip by one step (1/127
+            # of a token's max). Held to the bundle codec's own error on
+            # this map instead, the precision a served request has.
+            tol = max(SLICE_RMSE, codec_rmse)
         # Beside each result, which side a failure moved: the host CPU's
         # kernels (the CPU reference and the codec run there), the f32
         # return's error, and the codec's own error on the CPU.
-        context = (f"; cpu capability {torch.backends.cpu.get_cpu_capability()}, f32 return "
-                   f"rmse {f32_rmse:.3e}, codec's own rmse on the CPU {codec_rmse:.3e}")
-        for quantized, cpu in cpu_runs.items():
-            gpu = gpu_runs[quantized]
+        context = (f"; cpu capability {torch.backends.cpu.get_cpu_capability()} "
+                   f"({_host_kernels()}), f32 return rmse {f32_rmse:.3e}, codec's own rmse on "
+                   f"the CPU {codec_rmse:.3e}")
+        for quantized, (cpu, gpu) in enumerate(zip(cpu_runs, gpu_runs)):
             kc, kg = cpu.packed[6] > 0.5, gpu.packed[6] > 0.5
             agree = float((kc == kg).mean())
             rmse = _rmse(cpu, gpu)
-            tol = SLICE_RMSE
-            if family == "ZoeDepth int8" or (family == "ZoeDepth" and quantized):
-                # The random-init ZoeDepth map spans only ±8 % of its mean
-                # (the others span their whole range), so the depth
-                # normalization scales its card-vs-CPU differences up ~9x:
-                # the bundle's per-tile codes flip by one step where the
-                # others' do not, and so, through either return, do the
-                # int8 encoder's activation codes (one step is 1/127 of a
-                # token's max). Held to the bundle codec's own error on
-                # this map instead, the precision a served request has.
-                tol = max(SLICE_RMSE, codec_rmse)
             colors = bool(np.array_equal(cpu.packed[3:6], gpu.packed[3:6]))
             prev = int(np.abs(cpu.depth_preview_gray.astype(int)
                               - gpu.depth_preview_gray.astype(int)).max())
+            same = (gpu.raw_point_count == cpu.raw_point_count and colors
+                    and agree >= SLICE_KEEP_AGREE and prev <= 1)
+            if quantized:
+                cpu_dn = cpu_pipes[1].last_bundle[0]
+                dn_s, keep, pix, ycc, sent = gpu_pipes[1].last_bundle
+                replay = cpu_pipes[1]._bundle(
+                    dn_s.cpu(), keep.cpu(), None if pix is None else pix.cpu(), ycc=ycc)
+                exact = torch.equal(sent.cpu(), replay)
+                depth_rmse = 15.0 * float((dn_s.cpu() - cpu_dn).pow(2).mean().sqrt())
+                values = (f"bundle == the CPU's codec on the card's depth {exact}, that depth "
+                          f"vs the CPU's rmse {depth_rmse:.3e} (< {tol:.3e}), decoded rmse "
+                          f"{rmse:.3e} (CPU vs CPU at 1 thread {cpu_noise:.3e}, not bounded)")
+                ok = exact and depth_rmse < tol
+            else:
+                values = f"rmse {rmse:.3e} (< {tol:.3e})"
+                ok = rmse < tol
             log(f"{family} slice card vs CPU, {'quantized bundle' if quantized else 'f32 return'}: "
                 f"points {gpu.raw_point_count}/{cpu.raw_point_count}, colors exact {colors}, "
-                f"keep agree {agree:.5f} (>= {SLICE_KEEP_AGREE}), rmse {rmse:.3e} "
-                f"(< {tol:.3e}), preview max diff {prev}{context}")
-            if not (gpu.raw_point_count == cpu.raw_point_count and colors
-                    and agree >= SLICE_KEEP_AGREE and rmse < tol and prev <= 1):
+                f"keep agree {agree:.5f} (>= {SLICE_KEEP_AGREE}), {values}, "
+                f"preview max diff {prev}{context}")
+            if not (same and ok):
                 raise AssertionError(f"{family} slice on the card disagrees with the CPU")
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32

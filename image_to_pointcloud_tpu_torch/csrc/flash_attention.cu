@@ -91,23 +91,40 @@
 //   tile) make it one CTA an SM at every kD; DA-V2's batch-1 grid is 132
 //   CTAs, one an SM anyway.
 //
-// D > 128, both dtypes: the same kernel with kWide. O is cut into panels
-//   of 128 columns, one CTA per (b, h, 64-query tile, O panel): each CTA
-//   recomputes S over the whole D, streaming Q and K through its
-//   warpgroup's buffers in 32-column panels (the k-steps of Q·Kᵀ), and
-//   keeps only its panel of V and O. S is computed ceil(D / 128) times;
-//   loads are not overlapped with the products. Per warpgroup: Q panel
-//   16 KB, K panel 4 KB, Vᵀ panel 16 KB (72 KB a CTA). bf16 runs it too:
-//   a bf16 value is exact in tf32, so only the hi products are issued and
-//   P is rounded to bf16 as in the bf16 kernel. Limits left: B·H and the
-//   number of O panels at most 65535 (the launch grid's y and z).
+// D > 128: O in panels of 128 columns, each owned by one warpgroup, so S
+//   is computed once a key tile for a whole group of panels: each
+//   warpgroup computes its panel's partial S, the partials are summed in
+//   f32 in one order (rank 0, 1, ...), and every warpgroup runs the same
+//   softmax and multiplies the same P into its panel of V.
+//   What bounds it: at (1, 4, 1370, 192) a call is 5.8 GFLOP (bf16 5.8 µs
+//   at 989 TFLOP/s; f32 in 3xTF32 35 µs at 495) against 8.4 MB (2.5 µs):
+//   compute. At batch 1 the grids are small ((1, 2, 300, 320): 10 query
+//   tiles), so a CTA's time over all key tiles sets the call's.
+//   bf16 (`flash_fwd_bf16_wide_kernel`): the panels of a group are the
+//   two or three warpgroups of one CTA, the partials summed through its
+//   shared memory. Up to D = 384 (one group) the Q panels stay resident
+//   and the K and V panels are double-buffered by cp.async with the next
+//   tile in flight; S and P·V run on the bf16 tensor cores (wgmma
+//   m64n{32,64}k16 and m64n128k16), P rounded to bf16 as in the kernel
+//   above. Past 384 columns every group of three panels computes all of S
+//   (once per 384 columns), streaming the Q and K panels.
+//   f32 (`flash_fwd_tf32x3_cluster_kernel`): Q hi / lo is 64 KB a panel,
+//   so three panels' Q would leave no room for K and V in one CTA. The
+//   panels of a group are the CTAs of a thread-block cluster instead (up
+//   to 8, D <= 1024), one warpgroup each, the partials summed from the
+//   peers' shared memory (DSMEM): Q hi / lo resident, K / Vᵀ through
+//   registers with the next tile in flight, the kD = 128 kernel's 3xTF32
+//   tiles and accumulation rule. Past 8 panels,
+//   `flash_fwd_tf32x3_stream_kernel` (groups of two panels, S streamed).
+//   Measured against the one-CTA groups in f32 and against clusters in
+//   bf16, each won at every timed shape (PERF.md §6).
+//   Limits left: B·H and the number of 128-column panels at most 65535
+//   (the launch grid's y and z bound the groups).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -543,34 +560,28 @@ flash_fwd_bf16_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 // K-major in 32-bit words: rows of 32 words (128 bytes, the 128-byte
 // swizzle), a wider row as 32-word panels side by side; a Vᵀ row is kBK
 // words (128 bytes, or 64 in the 64-byte swizzle at kBK = 16). Each tile
-// has a hi half and, kBytes further, a lo half. Without kWide the whole Q
-// tile sits at 0 for both warpgroups, and each warpgroup has one stage of
-// K and Vᵀ; with kWide each warpgroup has its own Q panel buffer.
-template <int kD, bool kWide>
+// has a hi half and, kBytes further, a lo half. The whole Q tile sits at 0
+// for both warpgroups, and each warpgroup has one stage of K and Vᵀ.
+template <int kD>
 struct Tf32Layout {
   static_assert(kD == 32 || kD == 64 || kD == 128, "O widths");
   static constexpr int kBK = kD == 128 ? 16 : 32;   // keys a tile
-  static constexpr int kQK = kWide ? 32 : kD;       // Q / K columns resident
-  static constexpr int kQBytes = kTile * kQK * 4;   // one half
-  static constexpr int kKBytes = kBK * kQK * 4;
+  static constexpr int kQBytes = kTile * kD * 4;    // one half
+  static constexpr int kKBytes = kBK * kD * 4;
   static constexpr int kVBytes = kD * kBK * 4;
   static constexpr int kVRowBytes = kBK * 4;
   static constexpr uint64_t kVSwizzle = kVRowBytes == 128 ? 1 : 2;
   static constexpr uint32_t kVSbo = 8 * kVRowBytes / 16;
-  static constexpr int kWgBytes = (kWide ? 2 * kQBytes : 0) + 2 * kKBytes + 2 * kVBytes;
-  static constexpr int kSmemWg = kWide ? 0 : 2 * kQBytes;
+  static constexpr int kWgBytes = 2 * kKBytes + 2 * kVBytes;
+  static constexpr int kSmemWg = 2 * kQBytes;
   static constexpr int kAcc = kD / 2;  // O fragment floats a thread
   static constexpr int kMergeBytes = (kAcc + 4) * kWgThreads * 4;
   static_assert(kMergeBytes <= 2 * kWgBytes, "the merge reuses the warpgroups' area");
   static constexpr int kSmemBytes = kSmemWg + 2 * kWgBytes + 1024;  // + alignment slack
   static_assert(kSmemBytes <= 232448, "fits in an SM's shared memory");
 
-  static __device__ __forceinline__ uint32_t q(int wg) {
-    return kWide ? kSmemWg + wg * kWgBytes : 0;
-  }
-  static __device__ __forceinline__ uint32_t k(int wg) {
-    return kSmemWg + wg * kWgBytes + (kWide ? 2 * kQBytes : 0);
-  }
+  static __device__ __forceinline__ uint32_t q(int) { return 0; }
+  static __device__ __forceinline__ uint32_t k(int wg) { return kSmemWg + wg * kWgBytes; }
   static __device__ __forceinline__ uint32_t v(int wg) { return k(wg) + 2 * kKBytes; }
 };
 
@@ -594,12 +605,6 @@ __device__ __forceinline__ float tf32_rna(float x) {
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // A kRows × kCols-word tile of T in a warpgroup's registers, as float4
@@ -631,9 +636,9 @@ struct TileRegs {
   }
 };
 
-// The tile's hi (and with kSplit its lo) halves into a K-major tile of
-// kDstRows rows at byte offsets `hi`, `lo` of `smem`, from row `row0` on.
-template <bool kSplit, int kDstRows, typename R>
+// The tile's hi and lo halves into a K-major tile of kDstRows rows at byte
+// offsets `hi`, `lo` of `smem`, from row `row0` on.
+template <int kDstRows, typename R>
 __device__ __forceinline__ void store_kmajor(const R& t, uint8_t* smem, uint32_t hi, uint32_t lo,
                                              int row0, int tid) {
 #pragma unroll
@@ -644,20 +649,18 @@ __device__ __forceinline__ void store_kmajor(const R& t, uint8_t* smem, uint32_t
     const float4 x = t.x[j];
     const float4 h = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
     *reinterpret_cast<float4*>(smem + hi + off) = h;
-    if constexpr (kSplit) {
-      *reinterpret_cast<float4*>(smem + lo + off) =
-          make_float4(tf32_rna(x.x - h.x), tf32_rna(x.y - h.y), tf32_rna(x.z - h.z),
-                      tf32_rna(x.w - h.w));
-    }
+    *reinterpret_cast<float4*>(smem + lo + off) =
+        make_float4(tf32_rna(x.x - h.x), tf32_rna(x.y - h.y), tf32_rna(x.z - h.z),
+                    tf32_rna(x.w - h.w));
   }
 }
 
-// A (keys × columns) V tile's hi (and lo) halves transposed into Vᵀ (a row
+// A (keys × columns) V tile's hi and lo halves transposed into Vᵀ (a row
 // per column, kVRowBytes of keys). Within each group of 8 keys, key e goes
 // to position e / 2 + 4·(e % 2): the A fragment of a tf32 k8 step holds
 // columns t and t + 4 of a thread's row, where S's accumulator holds keys
 // 2t and 2t + 1, so P's registers feed P·V as they are.
-template <bool kSplit, int kVRows, int kVRowBytes, typename R>
+template <int kVRows, int kVRowBytes, typename R>
 __device__ __forceinline__ void store_vt(const R& t, uint8_t* smem, uint32_t hi, uint32_t lo,
                                          int tid) {
 #pragma unroll
@@ -671,7 +674,7 @@ __device__ __forceinline__ void store_vt(const R& t, uint8_t* smem, uint32_t hi,
       const uint32_t off = swz<kVRows, kVRowBytes>(4 * c + m, kp / 4) + 4 * (kp % 4);
       const float h = tf32_rna(xs[m]);
       *reinterpret_cast<float*>(smem + hi + off) = h;
-      if constexpr (kSplit) *reinterpret_cast<float*>(smem + lo + off) = tf32_rna(xs[m] - h);
+      *reinterpret_cast<float*>(smem + lo + off) = tf32_rna(xs[m] - h);
     }
   }
 }
@@ -742,10 +745,10 @@ __device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64], const uint32_
 
 // S (+)= Q·Kᵀ over kSteps k8 steps of the resident Q and K columns (hi at
 // q / k, lo kQBytes / kKBytes further); step kk reads panel kk / 4, 32
-// bytes further along the swizzle row a step. With kSplit the correction
-// products lo·hi and hi·lo go to their own accumulator `c`, so the small
-// terms are not added into (and truncated against) the large hi·hi sum.
-template <typename L, bool kSplit, int kSteps>
+// bytes further along the swizzle row a step. The correction products
+// lo·hi and hi·lo go to their own accumulator `c`, so the small terms are
+// not added into (and truncated against) the large hi·hi sum.
+template <typename L, int kSteps>
 __device__ __forceinline__ void qk_steps(float (&s)[L::kBK / 2], float (&c)[L::kBK / 2],
                                          uint32_t q, uint32_t k, bool accumulate) {
 #pragma unroll
@@ -755,10 +758,8 @@ __device__ __forceinline__ void qk_steps(float (&s)[L::kBK / 2], float (&c)[L::k
     const uint64_t qh = smem_desc(q + oq, 1, 64, 1);
     const uint64_t kh = smem_desc(k + ok, 1, 64, 1);
     const int acc = accumulate || kk > 0;
-    if constexpr (kSplit) {
-      wgmma_tf32_ss<L::kBK>(c, smem_desc(q + L::kQBytes + oq, 1, 64, 1), kh, acc);
-      wgmma_tf32_ss<L::kBK>(c, qh, smem_desc(k + L::kKBytes + ok, 1, 64, 1), 1);
-    }
+    wgmma_tf32_ss<L::kBK>(c, smem_desc(q + L::kQBytes + oq, 1, 64, 1), kh, acc);
+    wgmma_tf32_ss<L::kBK>(c, qh, smem_desc(k + L::kKBytes + ok, 1, 64, 1), 1);
     wgmma_tf32_ss<L::kBK>(s, qh, kh, acc);
   }
 }
@@ -766,26 +767,102 @@ __device__ __forceinline__ void qk_steps(float (&s)[L::kBK / 2], float (&c)[L::k
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+
+// One key tile of the tf32 kernels after S: the online softmax of s (the
+// tile's logits, kBK / 2 a thread, keys >= nk masked) in the log2 domain,
+// then this tile's P·V in 3xTF32 against the hi / lo Vᵀ tile at `vs`,
+// into a fresh accumulator that is added to O (acc) in f32.
+template <typename L, int kN>
+__device__ __forceinline__ void tf32_softmax_pv(float (&s)[L::kBK / 2], int nk, int t,
+                                                float scale_log2, uint32_t vs,
+                                                float (&acc)[kN / 2], float& m0, float& m1,
+                                                float& l0, float& l1) {
+  constexpr int kBK = L::kBK;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+    const float x = col < nk ? s[i] * scale_log2 : -INFINITY;
+    s[i] = x;
+    if ((i >> 1) & 1) {
+      mx1 = fmaxf(mx1, x);
+    } else {
+      mx0 = fmaxf(mx0, x);
+    }
+  }
+  const float mn0 = fmaxf(m0, quad_max(mx0));  // finite: the tile has a valid key
+  const float mn1 = fmaxf(m1, quad_max(mx1));
+  const float c0 = exp2f(m0 - mn0);
+  const float c1 = exp2f(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  l0 *= c0;
+  l1 *= c1;
+  // P's A fragments, one a k8 step of 8 keys: (row g, key 2t), (g + 8,
+  // 2t), (g, 2t + 1), (g + 8, 2t + 1), at positions t, t, t + 4, t + 4.
+  uint32_t ph[kBK / 8][4], pl[kBK / 8][4];
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    const float pa = exp2f(s[4 * j] - mn0);
+    const float pb = exp2f(s[4 * j + 1] - mn0);
+    const float pc = exp2f(s[4 * j + 2] - mn1);
+    const float pd = exp2f(s[4 * j + 3] - mn1);
+    l0 += pa + pb;
+    l1 += pc + pd;
+    const float a[4] = {pa, pc, pb, pd};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float hi = tf32_rna(a[e]);
+      ph[j][e] = __float_as_uint(hi);
+      pl[j][e] = __float_as_uint(tf32_rna(a[e] - hi));
+    }
+  }
+
+  // This tile's P·V into a fresh accumulator (k8 step j reads keys 8j..
+  // of Vᵀ, 32 bytes further a step), then O = O·c + tile in f32, rounded
+  // to nearest: the tensor cores' additions into an accumulator are not,
+  // and over all of N's tiles in one accumulator their error would grow
+  // with N.
+  float ot[kN / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    const uint64_t vh = smem_desc(vs + 32 * j, 1, L::kVSbo, L::kVSwizzle);
+    wgmma_tf32_rs<kN>(ot, pl[j], vh, j > 0);
+    wgmma_tf32_rs<kN>(ot, ph[j], smem_desc(vs + L::kVBytes + 32 * j, 1, L::kVSbo, L::kVSwizzle),
+                      1);
+    wgmma_tf32_rs<kN>(ot, ph[j], vh, 1);
+  }
+  wgmma_commit();
+  wgmma_wait();
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    fence_reg(ot[i]);
+    acc[i] = fmaf(acc[i], ((i >> 1) & 1) ? c1 : c0, ot[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      fence_reg(ph[j][e]);
+      fence_reg(pl[j][e]);
+    }
+  }
 }
 
 // Accumulator fragments as in the bf16 kernel (element i of m64nN at row
-// 16w + g + 8·((i >> 1) & 1), column 8·(i >> 2) + 2t + (i & 1)). T =
-// float: 3xTF32. T = bf16 (kWide only): bf16 is exact in tf32, so one
-// product, with P rounded to bf16 as the bf16 kernel rounds it.
-template <typename T, int kD, bool kWide>
+// 16w + g + 8·((i >> 1) & 1), column 8·(i >> 2) + 2t + (i & 1)).
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ o, int H, int N, int D,
+flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o, int H, int N, int D,
                         long long qsb, long long qsh, long long qsn,
                         long long ksb, long long ksh, long long ksn,
                         long long vsb, long long vsh, long long vsn,
                         long long osb, long long osh, long long osn, float scale_log2) {
-  using L = Tf32Layout<kD, kWide>;
-  constexpr bool kSplit = std::is_same<T, float>::value;
+  using T = float;
+  using L = Tf32Layout<kD>;
   constexpr int kBK = L::kBK;
-  static_assert(kSplit || kWide, "bf16 up to D = 128 is the bf16 kernel's");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t sbase = (raw + 1023u) & ~1023u;
@@ -803,10 +880,9 @@ flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H;
   const int h = bh - b * H;
   const int q0 = blockIdx.x * kTile;
-  const int col0 = kWide ? blockIdx.z * kD : 0;  // this CTA's O panel
   const T* qb = q + b * qsb + h * qsh + static_cast<long long>(q0) * qsn;
   const T* kb = k + b * ksb + h * ksh;
-  const T* vb = v + b * vsb + h * vsh + col0;
+  const T* vb = v + b * vsb + h * vsh;
 
   const int tiles = (N + kBK - 1) / kBK;
   const int half = (tiles + 1) / 2;
@@ -814,19 +890,18 @@ flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int count = (wg == 0 ? half : tiles) - first;
   const uint32_t qoff = L::q(wg), koff = L::k(wg), voff = L::v(wg);
 
-  TileRegs<T, kBK, L::kQK> kr;
+  TileRegs<T, kBK, kD> kr;
   TileRegs<T, kBK, kD> vr;
-  if constexpr (!kWide) {
-    // Q once (each warpgroup its 32 rows), and the first K/V tile.
+  {  // Q once (each warpgroup its 32 rows), and the first K/V tile.
     TileRegs<T, kTile / 2, kD> qr;
     qr.load(qb + static_cast<long long>(32 * wg) * qsn, qsn, N - q0 - 32 * wg, D, tid);
-    store_kmajor<kSplit, kTile>(qr, sm, qoff, qoff + L::kQBytes, 32 * wg, tid);
+    store_kmajor<kTile>(qr, sm, qoff, qoff + L::kQBytes, 32 * wg, tid);
     if (count > 0) {
       const long long r0 = static_cast<long long>(first) * kBK;
       kr.load(kb + r0 * ksn, ksn, N - first * kBK, D, tid);
       vr.load(vb + r0 * vsn, vsn, N - first * kBK, D, tid);
-      store_kmajor<kSplit, kBK>(kr, sm, koff, koff + L::kKBytes, 0, tid);
-      store_vt<kSplit, kD, L::kVRowBytes>(vr, sm, voff, voff + L::kVBytes, tid);
+      store_kmajor<kBK>(kr, sm, koff, koff + L::kKBytes, 0, tid);
+      store_vt<kD, L::kVRowBytes>(vr, sm, voff, voff + L::kVBytes, tid);
     }
     fence_proxy_async();
     __syncthreads();
@@ -845,53 +920,25 @@ flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[kBK / 2], sc[kBK / 2];  // hi·hi, and the corrections
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) s[i] = sc[i] = 0.f;
-    if constexpr (kWide) {
-      // S over D in 32-column panels of Q and K, each loaded, split and
-      // consumed before the next.
-      for (int p = 0; 32 * p < D; ++p) {
-        TileRegs<T, kTile, 32> qr;
-        qr.load(qb + 32 * p, qsn, N - q0, D - 32 * p, tid);
-        kr.load(kb + r0 * ksn + 32 * p, ksn, nk, D - 32 * p, tid);
-        store_kmajor<kSplit, kTile>(qr, sm, qoff, qoff + L::kQBytes, 0, tid);
-        store_kmajor<kSplit, kBK>(kr, sm, koff, koff + L::kKBytes, 0, tid);
-        fence_proxy_async();
-        wg_barrier(wg);
-        wgmma_fence();
-        qk_steps<L, kSplit, 4>(s, sc, sbase + qoff, sbase + koff, p > 0);
-        wgmma_commit();
-        wgmma_wait();
-#pragma unroll
-        for (int i = 0; i < kBK / 2; ++i) {
-          fence_reg(s[i]);
-          fence_reg(sc[i]);
-        }
-        wg_barrier(wg);  // the panel is consumed before it is refilled
-      }
-      vr.load(vb + r0 * vsn, vsn, nk, D - col0, tid);
-      store_vt<kSplit, kD, L::kVRowBytes>(vr, sm, voff, voff + L::kVBytes, tid);
-      fence_proxy_async();
-      wg_barrier(wg);
-    } else {
-      if (it + 1 < count) {  // the next tile, in flight during this one's products
-        kr.load(kb + (r0 + kBK) * ksn, ksn, nk - kBK, D, tid);
-        vr.load(vb + (r0 + kBK) * vsn, vsn, nk - kBK, D, tid);
-      }
-      wgmma_fence();
-      qk_steps<L, kSplit, kD / 8>(s, sc, sbase + qoff, sbase + koff, false);
-      wgmma_commit();
-      wgmma_wait();
-#pragma unroll
-      for (int i = 0; i < kBK / 2; ++i) {
-        fence_reg(s[i]);
-        fence_reg(sc[i]);
-      }
+    if (it + 1 < count) {  // the next tile, in flight during this one's products
+      kr.load(kb + (r0 + kBK) * ksn, ksn, nk - kBK, D, tid);
+      vr.load(vb + (r0 + kBK) * vsn, vsn, nk - kBK, D, tid);
     }
-    if constexpr (kSplit) {
+    wgmma_fence();
+    qk_steps<L, kD / 8>(s, sc, sbase + qoff, sbase + koff, false);
+    wgmma_commit();
+    wgmma_wait();
 #pragma unroll
-      for (int i = 0; i < kBK / 2; ++i) s[i] += sc[i];
+    for (int i = 0; i < kBK / 2; ++i) {
+      fence_reg(s[i]);
+      fence_reg(sc[i]);
     }
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] += sc[i];
 
-    // Online softmax in the log2 domain; keys >= N get -inf.
+    // Online softmax in the log2 domain; keys >= N get -inf. The same
+    // steps as tf32_softmax_pv, kept inline here: through the helper the
+    // served f32 instance ran ~4 % slower in an A/B (PERF.md §6).
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) {
@@ -917,18 +964,12 @@ flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
     uint32_t ph[kBK / 8][4], pl[kBK / 8][4];
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
-      float pa = exp2f(s[4 * j] - mn0);
-      float pb = exp2f(s[4 * j + 1] - mn0);
-      float pc = exp2f(s[4 * j + 2] - mn1);
-      float pd = exp2f(s[4 * j + 3] - mn1);
+      const float pa = exp2f(s[4 * j] - mn0);
+      const float pb = exp2f(s[4 * j + 1] - mn0);
+      const float pc = exp2f(s[4 * j + 2] - mn1);
+      const float pd = exp2f(s[4 * j + 3] - mn1);
       l0 += pa + pb;
       l1 += pc + pd;
-      if constexpr (!kSplit) {  // as the P·V dot sees it in bf16
-        pa = __bfloat162float(__float2bfloat16_rn(pa));
-        pb = __bfloat162float(__float2bfloat16_rn(pb));
-        pc = __bfloat162float(__float2bfloat16_rn(pc));
-        pd = __bfloat162float(__float2bfloat16_rn(pd));
-      }
       const float a[4] = {pa, pc, pb, pd};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -943,20 +984,15 @@ flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // to nearest: the tensor cores' additions into an accumulator are not,
     // and over all of N's tiles in one accumulator their error would grow
     // with N.
-    const uint32_t vs = sbase + voff;
     float ot[L::kAcc];
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
-      const uint64_t vh = smem_desc(vs + 32 * j, 1, L::kVSbo, L::kVSwizzle);
-      if constexpr (kSplit) {
-        wgmma_tf32_rs<kD>(ot, pl[j], vh, j > 0);
-        wgmma_tf32_rs<kD>(ot, ph[j],
-                          smem_desc(vs + L::kVBytes + 32 * j, 1, L::kVSbo, L::kVSwizzle), 1);
-        wgmma_tf32_rs<kD>(ot, ph[j], vh, 1);
-      } else {
-        wgmma_tf32_rs<kD>(ot, ph[j], vh, j > 0);
-      }
+      const uint64_t vh = smem_desc(sbase + voff + 32 * j, 1, L::kVSbo, L::kVSwizzle);
+      wgmma_tf32_rs<kD>(ot, pl[j], vh, j > 0);
+      wgmma_tf32_rs<kD>(
+          ot, ph[j], smem_desc(sbase + voff + L::kVBytes + 32 * j, 1, L::kVSbo, L::kVSwizzle), 1);
+      wgmma_tf32_rs<kD>(ot, ph[j], vh, 1);
     }
     wgmma_commit();
     wgmma_wait();
@@ -974,13 +1010,11 @@ flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     wg_barrier(wg);  // the stage is consumed before it is refilled
-    if constexpr (!kWide) {
-      if (it + 1 < count) {
-        store_kmajor<kSplit, kBK>(kr, sm, koff, koff + L::kKBytes, 0, tid);
-        store_vt<kSplit, kD, L::kVRowBytes>(vr, sm, voff, voff + L::kVBytes, tid);
-        fence_proxy_async();
-        wg_barrier(wg);
-      }
+    if (it + 1 < count) {
+      store_kmajor<kBK>(kr, sm, koff, koff + L::kKBytes, 0, tid);
+      store_vt<kD, L::kVRowBytes>(vr, sm, voff, voff + L::kVBytes, tid);
+      fence_proxy_async();
+      wg_barrier(wg);
     }
   }
   l0 = quad_sum(l0);
@@ -1009,11 +1043,11 @@ flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv1 = 1.f / (l1 * a1 + ml[3] * b1);
 
   const int row0 = q0 + 16 * warp + g;
-  T* ob = o + b * osb + h * osh + col0;
+  T* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j) {
     const int col = 8 * j + 2 * t;
-    if (col0 + col >= D) break;  // D is a multiple of 4: whole pairs
+    if (col >= D) break;  // D is a multiple of 4: whole pairs
     const float* mo = merge + 4 * j * kWgThreads + tid;
     if (row0 < N) {
       store_pair(ob + row0 * osn + col, (acc[4 * j] * a0 + mo[0] * b0) * inv0,
@@ -1022,6 +1056,603 @@ flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row0 + 8 < N) {
       store_pair(ob + (row0 + 8) * osn + col, (acc[4 * j + 2] * a1 + mo[2 * kWgThreads] * b1) * inv1,
                  (acc[4 * j + 3] * a1 + mo[3 * kWgThreads] * b1) * inv1);
+    }
+  }
+}
+
+// ------------------------------------------------ D > 128: 128-column panels
+
+// A group of kWG panels of 128 columns a CTA, warpgroup w owning O panel
+// w: the columns [128·(kWG·z + w), +128) of O for grid z. Each warpgroup
+// computes a partial S = Q_w·K_wᵀ of every key tile over its S panels;
+// the partials are summed in f32 through shared memory, in one order
+// (((S_0 + S_1) + S_2)), so every warpgroup holds the same S, runs the
+// same online softmax, and multiplies the same P into its panel of V. No
+// merge of (m, l) is needed at the end. A panel past D (a ragged last
+// group) reads zeros and stores nothing.
+
+// Byte offset of 16-byte chunk c of row r in a tile of kRows rows and 128
+// bf16 columns: two 64-column panels of 128-byte swizzled rows.
+template <int kRows>
+__device__ __forceinline__ uint32_t panel_chunk(int r, int c) {
+  return (c / 8) * kRows * 128 + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+// kRows rows × the 128 columns of a panel (row stride sn elements) into
+// shared memory at dst; rows >= n and columns >= d are zeros, and their
+// copies read nothing (their source is `safe`, a valid address).
+template <int kRows>
+__device__ __forceinline__ void load_panel(uint32_t dst, const __nv_bfloat16* base, long long sn,
+                                           int n, int d, const __nv_bfloat16* safe, int tid) {
+#pragma unroll 4
+  for (int idx = tid; idx < kRows * 16; idx += kWgThreads) {
+    const int r = idx / 16;
+    const int c = idx % 16;
+    const bool valid = r < n && c * 8 < d;
+    cp_async16(dst + panel_chunk<kRows>(r, c), valid ? base + r * sn + c * 8 : safe, valid);
+  }
+}
+
+// d (+)= A·B, m64n32k16 bf16, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " IPC_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : IPC_ACC16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+template <int kN>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[kN / 2], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  if constexpr (kN == 32) {
+    wgmma_ss_n32(d, da, db, accumulate);
+  } else {
+    static_assert(kN == 64, "key tiles of 32 or 64");
+    wgmma_ss(d, da, db, accumulate);
+  }
+}
+
+// The partial S of this warpgroup (its fragment, kN floats a thread) into
+// its slot of `buf`, a CTA barrier, then the sum of the kWG partials in
+// one order: element i of thread tid sits at [i·128 + tid] in each slot.
+template <int kWG, int kN>
+__device__ __forceinline__ void sum_partials(float (&s)[kN], float* buf, int wg, int tid) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) buf[(wg * kN + i) * kWgThreads + tid] = s[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    float x = buf[i * kWgThreads + tid];
+#pragma unroll
+    for (int w = 1; w < kWG; ++w) x += buf[(w * kN + i) * kWgThreads + tid];
+    s[i] = x;
+  }
+}
+
+// bf16, D > 128: `flash_fwd_bf16_wide_kernel`, kWG warpgroups of 128
+// threads, key tiles of kBK keys. Per warpgroup: a Q panel buffer (64 ×
+// 128, 16 KB), two stages of a K and a V panel (kBK × 128 each), and its
+// partial S in one of two buffers (64 × kBK f32; two, so a warpgroup that
+// runs ahead cannot overwrite the sum another still reads). S is wgmma
+// m64n{kBK}k16 from shared memory, P·V m64n128k16 with P in registers and
+// V MN-major (the transpose bit), as the kD = 128 kernel's. Shared memory:
+//   kWG = 2 (D <= 256), kBK = 64: 2 × (16 + 2 × 32) KB + 2 × 2 × 16 KB = 224 KB
+//   kWG = 3 (D > 256), kBK = 32: 3 × (16 + 2 × 16) KB + 2 × 3 × 8 KB = 192 KB
+// Registers: O (64 floats), S (kBK / 2) and P (kBK / 4) a thread, one CTA
+// an SM.
+// Up to kWG panels (one group, kStream false) warpgroup w's S panel is its
+// O panel: its Q panel is loaded once and stays, and its K and V panels
+// are double-buffered by cp.async, the next tile in flight during the
+// current one's products. Past kWG panels (kStream) every group computes
+// all of S: warpgroup w takes the S panels w, w + kWG, ..., and for each
+// streams its Q and K panels through the same buffers, then its O panel's
+// V (loads not overlapped: no preset runs a head this wide).
+template <int kWG, int kBK>
+struct WideBf16Layout {
+  static constexpr int kQBytes = kTile * 128 * 2;
+  static constexpr int kKVBytes = kBK * 128 * 2;      // a K or V panel
+  static constexpr int kWgBytes = kQBytes + 2 * 2 * kKVBytes;
+  static constexpr int kSmemS = kWG * kWgBytes;
+  static constexpr int kSBytes = kWG * kTile * kBK * 4;  // one buffer of the partials
+  static constexpr int kSmemBytes = kSmemS + 2 * kSBytes + 1024;  // + alignment slack
+  static_assert(kSmemBytes <= 232448, "fits in an SM's shared memory");
+
+  static __device__ __forceinline__ uint32_t q(int wg) { return wg * kWgBytes; }
+  static __device__ __forceinline__ uint32_t kv(int wg, int stage) {  // K, then V
+    return wg * kWgBytes + kQBytes + stage * 2 * kKVBytes;
+  }
+};
+
+// S (+)= the Q panel at `qs` times the K panel at `ks` (kBK keys), over
+// the eight k16 steps of its 128 columns (columns past D are zeros): step
+// kk reads 64-column panel kk / 4, 32 bytes further along the swizzle row
+// a step. No step is skipped at run time: a wgmma issued under a branch
+// makes ptxas fence every one of them.
+template <int kBK>
+__device__ __forceinline__ void bf16_qk_panel(float (&s)[kBK / 2], uint32_t qs, uint32_t ks) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    wgmma_bf16_ss<kBK>(s, smem_desc(qs + (kk / 4) * kTile * 128 + (kk % 4) * 32, 1, 64, 1),
+                       smem_desc(ks + (kk / 4) * kBK * 128 + (kk % 4) * 32, 1, 64, 1), 1);
+  }
+  wgmma_commit();
+  wgmma_wait();
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) fence_reg(s[i]);
+}
+
+// One key tile after S, as the bf16 kernel's: the online softmax of s
+// (keys >= kvalid masked) in the log2 domain, P rounded to bf16 in
+// registers, O rescaled, and (pv: the warpgroup has columns) O += P·V
+// over the tile's kBK / 16 k16 steps against the V panel at `vs` (16
+// swizzle rows a step; its two 64-column panels kBK rows apart).
+template <int kBK>
+__device__ __forceinline__ void bf16_softmax_pv(float (&s)[kBK / 2], int kvalid, int t,
+                                                float scale_log2, uint32_t vs, bool pv,
+                                                float (&acc)[64], float& m0, float& m1,
+                                                float& l0, float& l1) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+    const float x = col < kvalid ? s[i] * scale_log2 : -INFINITY;
+    s[i] = x;
+    if ((i >> 1) & 1) {
+      mx1 = fmaxf(mx1, x);
+    } else {
+      mx0 = fmaxf(mx0, x);
+    }
+  }
+  const float mn0 = fmaxf(m0, quad_max(mx0));  // finite: the tile has a valid key
+  const float mn1 = fmaxf(m1, quad_max(mx1));
+  const float c0 = exp2f(m0 - mn0);
+  const float c1 = exp2f(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  l0 *= c0;
+  l1 *= c1;
+  uint32_t p[kBK / 4];
+#pragma unroll
+  for (int i = 0; i < kBK / 2; i += 2) {
+    const bool r1 = (i >> 1) & 1;
+    const float pa = exp2f(s[i] - (r1 ? mn1 : mn0));
+    const float pb = exp2f(s[i + 1] - (r1 ? mn1 : mn0));
+    if (r1) {
+      l1 += pa + pb;
+    } else {
+      l0 += pa + pb;
+    }
+    p[i >> 1] = pack_bf16(pa, pb);  // P rounded to bf16, as the P·V dot sees it
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] *= ((i >> 1) & 1) ? c1 : c0;
+  if (!pv) return;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    wgmma_rs<128>(acc, a, smem_desc(vs + kk * 16 * 128, kBK * 128 / 16, 64, 1));
+  }
+  wgmma_commit();
+  wgmma_wait();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_reg(acc[i]);
+#pragma unroll
+  for (int i = 0; i < kBK / 4; ++i) fence_reg(p[i]);
+}
+
+template <int kWG, int kBK, bool kStream>
+__global__ void __launch_bounds__(kWG * kWgThreads, 1)
+flash_fwd_bf16_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ o, int H, int N, int D,
+                           long long qsb, long long qsh, long long qsn,
+                           long long ksb, long long ksh, long long ksn,
+                           long long vsb, long long vsh, long long vsn,
+                           long long osb, long long osh, long long osn, float scale_log2) {
+  using L = WideBf16Layout<kWG, kBK>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  float* sbuf = reinterpret_cast<float*>(smem_raw + (sbase - raw) + L::kSmemS);
+
+  const int wg = threadIdx.x / kWgThreads;
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kTile;
+  const int col0 = (blockIdx.z * kWG + wg) * 128;  // this warpgroup's O panel
+  const int dcols = D - col0;                      // its columns (may be <= 0)
+  const __nv_bfloat16* qh = q + b * qsb + h * qsh;
+  const __nv_bfloat16* kh = k + b * ksb + h * ksh;
+  const __nv_bfloat16* vh = v + b * vsb + h * vsh;
+  const __nv_bfloat16* qb = qh + static_cast<long long>(q0) * qsn;
+  const uint32_t qs = sbase + L::q(wg);
+  const int tiles = (N + kBK - 1) / kBK;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g and g + 8, log2 domain
+  float l0 = 0.f, l1 = 0.f;              // this thread's partial sums
+
+  if constexpr (!kStream) {
+    load_panel<kTile>(qs, qb + col0, qsn, N - q0, dcols, qh, tid);
+    load_panel<kBK>(sbase + L::kv(wg, 0), kh + col0, ksn, N, dcols, kh, tid);
+    load_panel<kBK>(sbase + L::kv(wg, 0) + L::kKVBytes, vh + col0, vsn, N, dcols, vh, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    wg_barrier(wg);
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int stage = tile & 1;
+      if (tile + 1 < tiles) {
+        const long long r0 = static_cast<long long>(tile + 1) * kBK;
+        const uint32_t dst = sbase + L::kv(wg, stage ^ 1);
+        load_panel<kBK>(dst, kh + r0 * ksn + col0, ksn, N - (tile + 1) * kBK, dcols, kh, tid);
+        load_panel<kBK>(dst + L::kKVBytes, vh + r0 * vsn + col0, vsn, N - (tile + 1) * kBK,
+                        dcols, vh, tid);
+        cp_async_commit();
+      }
+      if (tile > 0) {
+        if (tile + 1 < tiles) {
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        fence_proxy_async();
+        wg_barrier(wg);
+      }
+      const uint32_t ks = sbase + L::kv(wg, stage);
+      float s[kBK / 2];
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
+      bf16_qk_panel<kBK>(s, qs, ks);
+      sum_partials<kWG, kBK / 2>(s, sbuf + stage * (L::kSBytes / 4), wg, tid);
+      bf16_softmax_pv<kBK>(s, N - tile * kBK, t, scale_log2, ks + L::kKVBytes, true, acc, m0, m1,
+                           l0, l1);
+      wg_barrier(wg);  // the stage is consumed before it is refilled
+    }
+  } else {
+    const int panels = (D + 127) / 128;
+    const uint32_t ks = sbase + L::kv(wg, 0);
+    const uint32_t vs = ks + L::kKVBytes;
+    for (int tile = 0; tile < tiles; ++tile) {
+      const long long r0 = static_cast<long long>(tile) * kBK;
+      const int nk = N - tile * kBK;
+      float s[kBK / 2];
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
+      for (int sp = wg; sp < panels; sp += kWG) {  // this warpgroup's S panels
+        load_panel<kTile>(qs, qb + sp * 128, qsn, N - q0, D - sp * 128, qh, tid);
+        load_panel<kBK>(ks, kh + r0 * ksn + sp * 128, ksn, nk, D - sp * 128, kh, tid);
+        cp_async_commit();
+        cp_async_wait<0>();
+        fence_proxy_async();
+        wg_barrier(wg);
+        bf16_qk_panel<kBK>(s, qs, ks);
+        wg_barrier(wg);  // consumed before the next panel refills them
+      }
+      load_panel<kBK>(vs, vh + r0 * vsn + col0, vsn, nk, dcols, vh, tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      wg_barrier(wg);
+      sum_partials<kWG, kBK / 2>(s, sbuf + (tile & 1) * (L::kSBytes / 4), wg, tid);
+      bf16_softmax_pv<kBK>(s, nk, t, scale_log2, vs, dcols > 0, acc, m0, m1, l0, l1);
+      wg_barrier(wg);
+    }
+  }
+  if (dcols <= 0) return;
+  const float inv0 = 1.f / quad_sum(l0);
+  const float inv1 = 1.f / quad_sum(l1);
+  const int row0 = q0 + 16 * warp + g;
+  __nv_bfloat16* ob = o + b * osb + h * osh + col0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= dcols) break;  // D is a multiple of 8: whole n8 blocks
+    if (row0 < N) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * osn + col) =
+          __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    }
+    if (row0 + 8 < N) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * osn + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
+  }
+}
+
+// f32 past 8 panels (D > 1024): `flash_fwd_tf32x3_stream_kernel`, two
+// warpgroups (O panels of a 256-column group, grid z) and the kD = 128
+// kernel's 3xTF32 tiles (kBK = 16 keys, each tile's P·V in a fresh
+// accumulator). Every group computes all of S: warpgroup w takes the S
+// panels w, w + 2, ..., and for each loads its Q and K panels into
+// registers together (one round trip a panel), splits them and stores
+// them into its buffers; V's tile is in flight during S. Per warpgroup: a
+// Q panel buffer hi / lo (64 KB), K (16 KB) and Vᵀ (16 KB); the partials'
+// two buffers 2 × 2 × 4 KB: 208 KB.
+struct Tf32StreamLayout {
+  using P = Tf32Layout<128>;  // a panel's tiles: kBK = 16, Vᵀ rows of 64 bytes
+  static constexpr int kWgBytes = 2 * P::kQBytes + 2 * P::kKBytes + 2 * P::kVBytes;
+  static constexpr int kSmemS = 2 * kWgBytes;
+  static constexpr int kSBytes = 2 * kTile * P::kBK * 4;  // one buffer of the partials
+  static constexpr int kSmemBytes = kSmemS + 2 * kSBytes + 1024;
+  static_assert(kSmemBytes <= 232448, "fits in an SM's shared memory");
+
+  static __device__ __forceinline__ uint32_t q(int wg) { return wg * kWgBytes; }
+  static __device__ __forceinline__ uint32_t k(int wg) { return q(wg) + 2 * P::kQBytes; }
+  static __device__ __forceinline__ uint32_t v(int wg) { return k(wg) + 2 * P::kKBytes; }
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32x3_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, float* __restrict__ o, int H, int N,
+                             int D, long long qsb, long long qsh, long long qsn,
+                             long long ksb, long long ksh, long long ksn,
+                             long long vsb, long long vsh, long long vsn,
+                             long long osb, long long osh, long long osn, float scale_log2) {
+  using W = Tf32StreamLayout;
+  using L = W::P;
+  constexpr int kBK = L::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (sbase - raw);  // generic pointer at sbase
+  float* sbuf = reinterpret_cast<float*>(sm + W::kSmemS);
+
+  const int wg = threadIdx.x / kWgThreads;
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kTile;
+  const int col0 = (blockIdx.z * 2 + wg) * 128;  // this warpgroup's O panel
+  const int dcols = D - col0;                    // its columns (may be <= 0)
+  const float* qb = q + b * qsb + h * qsh + static_cast<long long>(q0) * qsn;
+  const float* kb = k + b * ksb + h * ksh;
+  const float* vb = v + b * vsb + h * vsh + col0;
+  const uint32_t qoff = W::q(wg), koff = W::k(wg), voff = W::v(wg);
+  const int tiles = (N + kBK - 1) / kBK;
+
+  TileRegs<float, kBK, 128> kr;
+  TileRegs<float, kBK, 128> vr;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g and g + 8, log2 domain
+  float l0 = 0.f, l1 = 0.f;              // this thread's partial sums
+  const int panels = (D + 127) / 128;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const long long r0 = static_cast<long long>(tile) * kBK;
+    const int nk = N - tile * kBK;  // valid keys of the tile (may exceed kBK)
+    float s[kBK / 2], sc[kBK / 2];  // hi·hi, and the corrections
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] = sc[i] = 0.f;
+    // V's tile in flight during S; each S panel's Q and K loaded together
+    // (one round trip a panel), split and stored.
+    vr.load(vb + r0 * vsn, vsn, nk, dcols, tid);
+    for (int sp = wg; sp < panels; sp += 2) {  // this warpgroup's S panels
+      TileRegs<float, kTile, 128> qr;
+      qr.load(qb + sp * 128, qsn, N - q0, D - sp * 128, tid);
+      kr.load(kb + r0 * ksn + sp * 128, ksn, nk, D - sp * 128, tid);
+      store_kmajor<kTile>(qr, sm, qoff, qoff + L::kQBytes, 0, tid);
+      store_kmajor<kBK>(kr, sm, koff, koff + L::kKBytes, 0, tid);
+      fence_proxy_async();
+      wg_barrier(wg);
+      wgmma_fence();
+      qk_steps<L, 16>(s, sc, sbase + qoff, sbase + koff, true);
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        fence_reg(s[i]);
+        fence_reg(sc[i]);
+      }
+      wg_barrier(wg);  // consumed before the next panel refills them
+    }
+    store_vt<128, L::kVRowBytes>(vr, sm, voff, voff + L::kVBytes, tid);
+    fence_proxy_async();
+    wg_barrier(wg);
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] += sc[i];
+    sum_partials<2, kBK / 2>(s, sbuf + (tile & 1) * (W::kSBytes / 4), wg, tid);
+    tf32_softmax_pv<L, 128>(s, nk, t, scale_log2, sbase + voff, acc, m0, m1, l0, l1);
+    wg_barrier(wg);  // the stage is consumed before it is refilled
+  }
+  if (dcols <= 0) return;
+  const float inv0 = 1.f / quad_sum(l0);
+  const float inv1 = 1.f / quad_sum(l1);
+  const int row0 = q0 + 16 * warp + g;
+  float* ob = o + b * osb + h * osh + col0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= dcols) break;  // D is a multiple of 4: whole pairs
+    if (row0 < N) store_pair(ob + row0 * osn + col, acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    if (row0 + 8 < N) {
+      store_pair(ob + (row0 + 8) * osn + col, acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
+  }
+}
+
+// ------------------------------------- D > 128, up to 8 panels: clusters
+
+// A cluster of one CTA a 128-column panel (grid z and the cluster's z:
+// the panels), each CTA one warpgroup. CTA p holds panel p of Q (loaded
+// once) and streams panel p of K and V; the partial S of every key tile
+// goes into its shared memory, and after a cluster barrier each CTA sums
+// the partials of ranks 0, 1, ... in that order from its peers' shared
+// memory (DSMEM), so every CTA holds the same S, runs the same softmax,
+// and multiplies the same P into its panel of V. S is computed once a
+// key tile over the whole D, each panel has an SM's shared memory and
+// tensor cores to itself, and the grid has one CTA a panel.
+// Every thread of the cluster's CTAs arrives, then waits for all: their
+// shared-memory writes before it are visible to the peers' reads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The partial S of this CTA (its fragment, kN floats a thread) into
+// `buf` (a shared-memory address), a cluster barrier, then the sum of
+// every rank's partial in rank order, read from the peers' shared memory
+// (mapa: the same offset in rank r's window): element i of thread tid
+// sits at [i·128 + tid] in each CTA's buf.
+template <int kN>
+__device__ __forceinline__ void cluster_sum_partials(float (&s)[kN], uint32_t buf, int tid) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(buf + 4 * (i * kWgThreads + tid)), "f"(s[i])
+                 : "memory");
+  }
+  cluster_sync();
+  uint32_t ranks;
+  asm("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(ranks));
+  for (uint32_t r = 0; r < ranks; ++r) {
+    uint32_t peer;
+    asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(buf), "r"(r));
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      float x;
+      asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+                   : "=f"(x)
+                   : "r"(peer + 4 * (i * kWgThreads + tid))
+                   : "memory");
+      s[i] = r == 0 ? x : s[i] + x;
+    }
+  }
+}
+
+// f32 (`flash_fwd_tf32x3_cluster_kernel`): the kD = 128 kernel's 3xTF32
+// tiles (kBK = 16 keys; K and Vᵀ hi / lo through registers, the next tile
+// in flight during the current one's products; each tile's P·V in a
+// fresh accumulator). Q panel hi / lo 64 KB (split and stored once), K
+// and Vᵀ 16 KB each, two buffers of the partial S 8 KB: 105 KB, two CTAs
+// an SM.
+struct ClusterTf32Layout {
+  using P = Tf32Layout<128>;  // a panel's tiles: kBK = 16, Vᵀ rows of 64 bytes
+  static constexpr int kK = 2 * P::kQBytes;
+  static constexpr int kV = kK + 2 * P::kKBytes;
+  static constexpr int kSmemS = kV + 2 * P::kVBytes;
+  static constexpr int kSBytes = kTile * P::kBK * 4;  // one buffer of the partial
+  static constexpr int kSmemBytes = kSmemS + 2 * kSBytes + 1024;
+};
+
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_fwd_tf32x3_cluster_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, float* __restrict__ o, int H,
+                                int N, int D, long long qsb, long long qsh, long long qsn,
+                                long long ksb, long long ksh, long long ksn,
+                                long long vsb, long long vsh, long long vsn,
+                                long long osb, long long osh, long long osn,
+                                float scale_log2) {
+  using W = ClusterTf32Layout;
+  using L = W::P;
+  constexpr int kBK = L::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (sbase - raw);  // generic pointer at sbase
+  const uint32_t sbuf = sbase + W::kSmemS;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kTile;
+  const int col0 = blockIdx.z * 128;  // this CTA's panel
+  const int dcols = D - col0;         // its columns
+  const float* qb = q + b * qsb + h * qsh + static_cast<long long>(q0) * qsn + col0;
+  const float* kb = k + b * ksb + h * ksh + col0;
+  const float* vb = v + b * vsb + h * vsh + col0;
+  const int tiles = (N + kBK - 1) / kBK;
+
+  TileRegs<float, kBK, 128> kr;
+  TileRegs<float, kBK, 128> vr;
+  {  // The Q panel once, in two halves of 32 rows, and the first K/V tile.
+    TileRegs<float, kTile / 2, 128> qr;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      qr.load(qb + static_cast<long long>(32 * half) * qsn, qsn, N - q0 - 32 * half, dcols, tid);
+      store_kmajor<kTile>(qr, sm, 0, L::kQBytes, 32 * half, tid);
+    }
+    kr.load(kb, ksn, N, dcols, tid);
+    vr.load(vb, vsn, N, dcols, tid);
+    store_kmajor<kBK>(kr, sm, W::kK, W::kK + L::kKBytes, 0, tid);
+    store_vt<128, L::kVRowBytes>(vr, sm, W::kV, W::kV + L::kVBytes, tid);
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g and g + 8, log2 domain
+  float l0 = 0.f, l1 = 0.f;              // this thread's partial sums
+  for (int tile = 0; tile < tiles; ++tile) {
+    const long long r0 = static_cast<long long>(tile) * kBK;
+    const int nk = N - tile * kBK;  // valid keys of the tile (may exceed kBK)
+    if (tile + 1 < tiles) {  // the next tile, in flight during this one's products
+      kr.load(kb + (r0 + kBK) * ksn, ksn, nk - kBK, dcols, tid);
+      vr.load(vb + (r0 + kBK) * vsn, vsn, nk - kBK, dcols, tid);
+    }
+    float s[kBK / 2], sc[kBK / 2];  // hi·hi, and the corrections
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] = sc[i] = 0.f;
+    wgmma_fence();
+    qk_steps<L, 16>(s, sc, sbase, sbase + W::kK, false);
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      fence_reg(s[i]);
+      fence_reg(sc[i]);
+      s[i] += sc[i];
+    }
+    cluster_sum_partials<kBK / 2>(s, sbuf + (tile & 1) * W::kSBytes, tid);
+    tf32_softmax_pv<L, 128>(s, nk, t, scale_log2, sbase + W::kV, acc, m0, m1, l0, l1);
+    __syncthreads();  // the stage is consumed before it is refilled
+    if (tile + 1 < tiles) {
+      store_kmajor<kBK>(kr, sm, W::kK, W::kK + L::kKBytes, 0, tid);
+      store_vt<128, L::kVRowBytes>(vr, sm, W::kV, W::kV + L::kVBytes, tid);
+      fence_proxy_async();
+      __syncthreads();
+    }
+  }
+  cluster_sync();  // no peer reads this CTA's partials any more
+  const float inv0 = 1.f / quad_sum(l0);
+  const float inv1 = 1.f / quad_sum(l1);
+  const int row0 = q0 + 16 * warp + g;
+  float* ob = o + b * osb + h * osh + col0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= dcols) break;  // D is a multiple of 4: whole pairs
+    if (row0 < N) store_pair(ob + row0 * osn + col, acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    if (row0 + 8 < N) {
+      store_pair(ob + (row0 + 8) * osn + col, acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
     }
   }
 }
@@ -1052,18 +1683,18 @@ cudaError_t opt_in(Kernel kernel, int bytes, unsigned& configured) {
   return cudaSuccess;
 }
 
-template <typename T, int kD, bool kWide>
+template <int kD>
 int launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
                 const long long* st, float scale, cudaStream_t s) {
   static unsigned configured = 0;
-  constexpr int kSmem = Tf32Layout<kD, kWide>::kSmemBytes;
-  const cudaError_t err = opt_in(flash_fwd_tf32x3_kernel<T, kD, kWide>, kSmem, configured);
+  constexpr int kSmem = Tf32Layout<kD>::kSmemBytes;
+  const cudaError_t err = opt_in(flash_fwd_tf32x3_kernel<kD>, kSmem, configured);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + kTile - 1) / kTile, B * H, kWide ? (D + kD - 1) / kD : 1);
-  flash_fwd_tf32x3_kernel<T, kD, kWide><<<grid, kThreads, kSmem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, N, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale * 1.4426950408889634f);
+  dim3 grid((N + kTile - 1) / kTile, B * H);
+  flash_fwd_tf32x3_kernel<kD><<<grid, kThreads, kSmem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, N, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], st[9], st[10], st[11], scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -1076,6 +1707,68 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   if (err != cudaSuccess) return err;
   dim3 grid((N + kTile - 1) / kTile, B * H);
   flash_fwd_bf16_wgmma_kernel<kD, kMasked><<<grid, kThreads, kSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, N, D, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// f32 up to kMaxCluster panels: a cluster of one CTA a panel (grid z).
+constexpr int kMaxCluster = 8;  // the portable cluster size
+
+int launch_tf32_cluster(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int N, int D, const long long* st, float scale, cudaStream_t s) {
+  static unsigned configured = 0;
+  constexpr int smem = ClusterTf32Layout::kSmemBytes;
+  const cudaError_t err = opt_in(flash_fwd_tf32x3_cluster_kernel, smem, configured);
+  if (err != cudaSuccess) return err;
+  const int panels = (D + 127) / 128;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kTile - 1) / kTile, B * H, panels);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = panels;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, flash_fwd_tf32x3_cluster_kernel, static_cast<const float*>(q),
+                            static_cast<const float*>(k), static_cast<const float*>(v),
+                            static_cast<float*>(o), H, N, D, st[0], st[1], st[2], st[3], st[4],
+                            st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+                            scale * 1.4426950408889634f);
+}
+
+// Grid z over groups of 128-column panels: two in f32 past 8 panels, kWG
+// in bf16, which past one group streams all of S's panels (kStream).
+int launch_tf32_stream(const void* q, const void* k, const void* v, void* o, int B, int H,
+                       int N, int D, const long long* st, float scale, cudaStream_t s) {
+  static unsigned configured = 0;
+  constexpr int kSmem = Tf32StreamLayout::kSmemBytes;
+  const cudaError_t err = opt_in(flash_fwd_tf32x3_stream_kernel, kSmem, configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kTile - 1) / kTile, B * H, (D + 255) / 256);
+  flash_fwd_tf32x3_stream_kernel<<<grid, kThreads, kSmem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, N, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], st[9], st[10], st[11], scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <int kWG, int kBK, bool kStream>
+int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+                     int D, const long long* st, float scale, cudaStream_t s) {
+  static unsigned configured = 0;
+  constexpr int kSmem = WideBf16Layout<kWG, kBK>::kSmemBytes;
+  const cudaError_t err =
+      opt_in(flash_fwd_bf16_wide_kernel<kWG, kBK, kStream>, kSmem, configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + kTile - 1) / kTile, B * H, (D + kWG * 128 - 1) / (kWG * 128));
+  flash_fwd_bf16_wide_kernel<kWG, kBK, kStream><<<grid, kWG * kWgThreads, kSmem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, N, D, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
@@ -1104,10 +1797,12 @@ extern "C" int ipc_flash_attention(const void* q, const void* k, const void* v,
     return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (D <= 32) return launch_tf32<float, 32, false>(q, k, v, o, B, H, N, D, st, scale, s);
-    if (D <= 64) return launch_tf32<float, 64, false>(q, k, v, o, B, H, N, D, st, scale, s);
-    if (D <= 128) return launch_tf32<float, 128, false>(q, k, v, o, B, H, N, D, st, scale, s);
-    return launch_tf32<float, 128, true>(q, k, v, o, B, H, N, D, st, scale, s);
+    if (D <= 32) return launch_tf32<32>(q, k, v, o, B, H, N, D, st, scale, s);
+    if (D <= 64) return launch_tf32<64>(q, k, v, o, B, H, N, D, st, scale, s);
+    if (D <= 128) return launch_tf32<128>(q, k, v, o, B, H, N, D, st, scale, s);
+    if ((D + 127) / 128 <= kMaxCluster)
+      return launch_tf32_cluster(q, k, v, o, B, H, N, D, st, scale, s);
+    return launch_tf32_stream(q, k, v, o, B, H, N, D, st, scale, s);
   }
   if (D == 32) return launch_bf16<32, false>(q, k, v, o, B, H, N, D, st, scale, s);
   if (D < 32) return launch_bf16<32, true>(q, k, v, o, B, H, N, D, st, scale, s);
@@ -1115,5 +1810,7 @@ extern "C" int ipc_flash_attention(const void* q, const void* k, const void* v,
   if (D < 64) return launch_bf16<64, true>(q, k, v, o, B, H, N, D, st, scale, s);
   if (D == 128) return launch_bf16<128, false>(q, k, v, o, B, H, N, D, st, scale, s);
   if (D < 128) return launch_bf16<128, true>(q, k, v, o, B, H, N, D, st, scale, s);
-  return launch_tf32<__nv_bfloat16, 128, true>(q, k, v, o, B, H, N, D, st, scale, s);
+  if (D <= 256) return launch_bf16_wide<2, 64, false>(q, k, v, o, B, H, N, D, st, scale, s);
+  if (D <= 384) return launch_bf16_wide<3, 32, false>(q, k, v, o, B, H, N, D, st, scale, s);
+  return launch_bf16_wide<3, 32, true>(q, k, v, o, B, H, N, D, st, scale, s);
 }

@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Every source under ``csrc/`` is compiled at first use by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, which
-``ctypes`` loads. A build takes seconds (no PyTorch headers). The
+``sm_90a``, one ``nvcc`` a source, all started together, and linked into
+one shared library with a plain C interface, which ``ctypes`` loads. A
+build takes seconds (no PyTorch headers). The
 library's file name carries a hash of the sources and flags, so an edited
 source never loads a stale build; the build writes to a temporary name
 and renames, so two processes racing the same build both end with a
@@ -39,7 +40,7 @@ BUILD_DIR = CSRC / "build"
 SOURCES = ("flash_attention.cu", "grid_knn.cu", "unproject.cu", "error.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, into the build log
 )
 
@@ -68,6 +69,7 @@ KERNELS = (FLASH_ATTENTION, GRID_KNN, UNPROJECT)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_build_error: RuntimeError | None = None
 
 
 def _nvcc() -> str:
@@ -93,11 +95,27 @@ def _build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{name}.o") for name in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        failed = [(n, p.returncode, log) for n, p, log in zip(SOURCES, procs, logs) if p.returncode]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode:
+                failed = [("link", link.returncode, link.stderr)]
+        so.with_suffix(".log").write_text("".join(logs))
+        if failed:
+            name, rc, log = failed[0]
+            raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)
     return so
 
@@ -121,11 +139,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built from ``csrc/`` on first call."""
-    global _lib
+    """The kernels' shared library, built from ``csrc/`` on first call. A
+    build that failed raises its error again on every later call, without
+    building again (the sources of a running process do not change)."""
+    global _lib, _build_error
     with _lock:
+        if _build_error is not None:
+            raise _build_error
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(_build())))
+            try:
+                _lib = _bind(ctypes.CDLL(str(_build())))
+            except RuntimeError as e:
+                _build_error = e
+                raise
         return _lib
 
 

@@ -5,10 +5,13 @@ Counterpart of ``image_to_pointcloud_tpu/models/attention.py``. The
 kernels (``csrc/flash_attention.cu``, on the tensor cores with ``wgmma``:
 bf16 directly, f32 in 3xTF32) replace the Pallas TPU kernel
 ``flash_attention``; :func:`attention_plain` is ``_attention_xla``'s
-math. Any head dim, as the Pallas kernel takes any: above 128 the kernel
-writes O in 128-column panels and recomputes the logits for each. The
-only limits are the launch grid's (:data:`MAX_BATCH_HEADS` batch × heads,
-:data:`MAX_HEAD_DIM_PANELS` panels). The choice follows the tensor's
+math. Any head dim, as the Pallas kernel takes any: above 128 a kernel
+for wide heads writes O in 128-column panels, one a warpgroup, and
+computes the logits once a key tile for a group of panels (up to 384
+columns in bf16, the warpgroups of one CTA; up to 1024 in f32, the CTAs
+of a thread-block cluster). The only limits are the launch grid's
+(:data:`MAX_BATCH_HEADS` batch × heads, :data:`MAX_HEAD_DIM_PANELS`
+panels). The choice follows the tensor's
 device: a CUDA tensor launches the kernel (or raises), a CPU tensor
 takes the plain version; a caller that
 asks for no flash (``use_flash=False``, the backbones'
@@ -39,8 +42,8 @@ __all__ = [
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The launch grid's limits (csrc/flash_attention.cu): B·H is its y
-# dimension and the 128-column O panels (D > 128) its z.
+# The entry point's limits (csrc/flash_attention.cu): B·H is the launch
+# grid's y dimension, and the 128-column O panels (D > 128) bound its z.
 MAX_BATCH_HEADS = 65535
 MAX_HEAD_DIM_PANELS = 65535
 # Elements of a 16-byte chunk: the kernels read rows 16 bytes at a time.
@@ -76,8 +79,9 @@ def flash_attention(
     not a multiple of 16 bytes (8 bf16, 4 f32) is zero-padded into
     contiguous copies first, the scale staying 1/√D of the true D;
     pointers and strides that are not multiples of 16 bytes raise. The output has the input dtype and shape, laid out as (B, N,
-    H, D) underneath so merging the heads back is free. bf16 up to D = 128
-    runs the bf16 tensor-core kernel, f32 and D > 128 the 3xTF32 one. B·H
+    H, D) underneath so merging the heads back is free. bf16 runs on the
+    bf16 tensor cores, f32 in 3xTF32 on the TF32 ones; above D = 128 each
+    dtype has its kernel for wide heads. B·H
     above :data:`MAX_BATCH_HEADS` or more than :data:`MAX_HEAD_DIM_PANELS`
     O panels raise. Forward only: under grad mode, inputs that require
     grad raise.

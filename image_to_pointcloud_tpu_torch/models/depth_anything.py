@@ -156,7 +156,7 @@ class DepthAnything(nn.Module):
 
     def finish(self, taps: list[torch.Tensor], grid: tuple[int, int]) -> torch.Tensor:
         """The tap blocks' outputs → depth: everything after the encoder."""
-        return self.neck(self.backbone.finalize(taps, grid)).float()
+        return self.neck(self.backbone.finalize(taps, *grid)).float()
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         return self.neck(self.backbone(pixels)).float()

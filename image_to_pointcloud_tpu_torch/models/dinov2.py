@@ -182,10 +182,9 @@ class DinoV2Backbone(nn.Module):
     def block_args(self, grid: tuple[int, int], device: torch.device) -> tuple:
         return ()
 
-    def finalize(self, taps: list[torch.Tensor], grid: tuple[int, int]) -> list[torch.Tensor]:
-        """Tap token sequences → (B, h, w, D) maps: final LayerNorm, CLS
+    def finalize(self, taps: list[torch.Tensor], ph: int, pw: int) -> list[torch.Tensor]:
+        """Tap token sequences → (B, ph, pw, D) maps: final LayerNorm, CLS
         stripped."""
-        ph, pw = grid
         return [
             self.norm(t)[:, 1:].reshape(t.shape[0], ph, pw, self.cfg.hidden_size) for t in taps
         ]
@@ -193,4 +192,4 @@ class DinoV2Backbone(nn.Module):
     def forward(self, pixels: torch.Tensor) -> list[torch.Tensor]:
         p = self.cfg.patch_size
         grid = (pixels.shape[1] // p, pixels.shape[2] // p)
-        return self.finalize(run_blocks(self, self.embed(pixels), grid), grid)
+        return self.finalize(run_blocks(self, self.embed(pixels), grid), *grid)

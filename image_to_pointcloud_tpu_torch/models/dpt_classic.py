@@ -35,6 +35,15 @@ __all__ = ["DPTClassic", "DPTClassicConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
+class _RelativeNeckInfo:
+    """The ``cfg.neck`` view of a relative-depth model, for readers of
+    ``cfg.neck.metric_depth`` (the CLI, ``MetricPipeline``)."""
+
+    metric_depth: bool = False
+    max_depth: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class DPTClassicConfig:
     backbone: ViTConfig = dataclasses.field(default_factory=ViTConfig)
     neck_hidden_sizes: Sequence[int] = (256, 512, 1024, 1024)
@@ -46,6 +55,12 @@ class DPTClassicConfig:
     size_multiple: int = 16
     keep_aspect_ratio: bool = False
     resize_method: str = "bicubic_pil"
+
+    @property
+    def neck(self) -> _RelativeNeckInfo:
+        """Relative depth: ``metric_depth`` is False, as a DA-V2 config's
+        neck says."""
+        return _RelativeNeckInfo()
 
     def with_flash_attention(self, on: bool = True) -> "DPTClassicConfig":
         """K1 in the encoder's attention (``on``), or the plain version on

@@ -33,6 +33,16 @@ __all__ = ["ZoeDepth", "ZoeDepthConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
+class _MetricNeckInfo:
+    """The ``cfg.neck`` view of a metric model, for readers of
+    ``cfg.neck.metric_depth`` and ``max_depth`` (the CLI,
+    ``MetricPipeline``)."""
+
+    metric_depth: bool
+    max_depth: float
+
+
+@dataclasses.dataclass(frozen=True)
 class ZoeDepthConfig:
     backbone: BeitConfig = dataclasses.field(default_factory=BeitConfig)
     neck_hidden_sizes: Sequence[int] = (96, 192, 384, 768)
@@ -57,6 +67,11 @@ class ZoeDepthConfig:
     size_multiple: int = 32
     pad_reflect_factor: int = 3
     resize_method: str = "linear_ac"
+
+    @property
+    def neck(self) -> _MetricNeckInfo:
+        """Metric depth up to ``max_depth``."""
+        return _MetricNeckInfo(metric_depth=True, max_depth=self.max_depth)
 
     def with_flash_attention(self, on: bool = True) -> "ZoeDepthConfig":
         """A no-op, as in the JAX package: BEiT's attention adds a relative

@@ -37,8 +37,9 @@ __all__ = [
 _BIG = 1e30
 _SENTINEL = 1e9
 # The kernel's paths (csrc/grid_knn.cu): a list in registers up to
-# k_eff = 64 entries (any window); above it a warp a point ranks the taps
-# in shared memory, 2·(2·window+1)² floats a warp, so window <= 84.
+# k_eff = 64 entries (any window); above it a warp a point sorts the taps'
+# values (a bitonic network, in registers up to window 15, in shared memory
+# above: 2^⌈log2 (2·window+1)²⌉ floats a warp, so window <= 84).
 MAX_REGISTER_K = 64
 MAX_SORTED_WINDOW = 84
 # Windows above it would overflow the kernel's 32-bit offsets.
@@ -150,8 +151,10 @@ def grid_knn_mean_distances_cuda(
 
     (k, window) = (20, 4), the served pair, runs the kernel redesigned for
     it; any other pair the general kernel beside it (a list of up to 64
-    entries in registers) or, above 64 entries, the sorted one (a warp a
-    point). The input may be
+    entries in registers) or, above 64 entries, a sorted one (a warp a
+    point runs a bitonic sort of the window's values, then sums the first
+    k_eff roots in ascending order, as the plain version's closed form
+    does). The input may be
     any strided view whose row stride is ``ww`` point strides — e.g.
     ``packed[:, :3].transpose(1, 2).reshape(B, hh, ww, 3)`` of the planar
     (B, 8, N) point buffer, which the kernel reads in place. Bit-identical

@@ -38,7 +38,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from image_to_pointcloud_tpu_torch.models.zoedepth import ZoeDepthConfig
 from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth
 from image_to_pointcloud_tpu_torch.ops.resize import resize_planes
 from image_to_pointcloud_tpu_torch.ops.unproject import (
@@ -48,7 +47,11 @@ from image_to_pointcloud_tpu_torch.ops.unproject import (
 )
 from image_to_pointcloud_tpu_torch.ops.voxel import voxel_downsample
 from image_to_pointcloud_tpu_torch.parallel.tiling import blend_tiles, extract_tiles, plan_tiles
-from image_to_pointcloud_tpu_torch.pipeline.graph import default_quantized_transfer
+from image_to_pointcloud_tpu_torch.pipeline.graph import (
+    default_quantized_transfer,
+    exact_f32,
+    wants_exact_f32,
+)
 from image_to_pointcloud_tpu_torch.pipeline.preprocess import (
     model_preprocess_spec,
     preprocess_for_model,
@@ -81,9 +84,8 @@ class CameraIntrinsics:
 
 def _is_metric(cfg) -> bool:
     """Whether the config's model predicts metric depth (ZoeDepth, or a
-    DA config with the metric head)."""
-    return isinstance(cfg, ZoeDepthConfig) or bool(getattr(getattr(cfg, "neck", None),
-                                                           "metric_depth", False))
+    DA config with the metric head): every family's ``cfg.neck`` says."""
+    return cfg.neck.metric_depth
 
 
 def _depth_bits() -> int:
@@ -109,6 +111,10 @@ class _ModelPipeline:
         self.model = model.eval()
         self.cfg = model.cfg
         self.device = next(model.parameters()).device
+        # f32 on CUDA runs without TF32 (``pipeline/graph.py``); the dtype is
+        # the first floating parameter's, as ``DepthPipeline`` reads it.
+        dtype = next(t.dtype for t in model.parameters() if t.is_floating_point())
+        self.exact_f32 = wants_exact_f32(self.device, dtype)
         (
             self.model_target,
             self.size_multiple,
@@ -131,7 +137,8 @@ class _ModelPipeline:
         model resolution for an (H, W) input."""
         x = preprocess_for_model(img, self._size(*hw), mean=self.pixel_mean,
                                  std=self.pixel_std, method=self.resize_method)
-        return self.model(x)
+        with exact_f32(self.exact_f32):
+            return self.model(x)
 
     def _to_device(self, imgs_u8: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.require(imgs_u8, requirements=["C", "W"])).to(self.device).float()

@@ -33,7 +33,11 @@ f32 on CUDA means f32: torch runs f32 convolutions through cuDNN in TF32
 by default (``torch.backends.cudnn.allow_tf32``), and a caller may have
 turned TF32 on for matmuls. A pipeline over an f32 model on CUDA runs each
 forward inside :func:`exact_f32`, which turns both flags off and restores
-them afterwards; a bf16 model's forward is left as it is. The flags are
+them afterwards; a bf16 model's forward is left as it is. So do the
+advanced pipelines (``pipeline/advanced.py``), the v2 matte
+(``serve/matting.py``) and the trainer, forward and backward
+(``train/trainer.py``): every f32 forward on CUDA, as
+:func:`wants_exact_f32` decides. The flags are
 process-wide, not per thread: :func:`exact_f32` counts the forwards inside
 it under a lock, so the first to enter saves the flags and the last to
 leave restores them, and concurrent f32 forwards (the server's executor
@@ -114,6 +118,7 @@ __all__ = [
     "exact_f32",
     "plan_jpeg_input",
     "plan_sparse_batch",
+    "wants_exact_f32",
 ]
 
 MAX_IMAGE_DIM = 3072  # reference backend/app.py:43
@@ -451,6 +456,12 @@ _tf32_users = 0
 _tf32_saved: tuple[bool, bool] = (False, False)
 
 
+def wants_exact_f32(device: "str | torch.device", dtype: torch.dtype) -> bool:
+    """Whether a forward in ``dtype`` on ``device`` runs inside
+    :func:`exact_f32`: f32 on CUDA (the module docstring)."""
+    return torch.device(device).type == "cuda" and dtype == torch.float32
+
+
 @contextlib.contextmanager
 def exact_f32(on: bool = True):
     """TF32 off for cuDNN convolutions and CUDA matmuls inside the scope
@@ -524,7 +535,7 @@ class DepthPipeline:
         self.model = model
         self.device = self._slots[0][0]
         # f32 on CUDA runs without TF32 (the module docstring).
-        self.exact_f32 = self.device.type == "cuda" and self.dtype == torch.float32
+        self.exact_f32 = wants_exact_f32(self.device, self.dtype)
         (
             self.model_target,
             self.size_multiple,

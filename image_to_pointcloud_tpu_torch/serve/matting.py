@@ -24,6 +24,7 @@ import torch
 from image_to_pointcloud_tpu_torch.models.convert import convert_segformer, load_safetensors
 from image_to_pointcloud_tpu_torch.models.segformer import SegformerMatte, segformer_b0
 from image_to_pointcloud_tpu_torch.ops.resize import resize_planes
+from image_to_pointcloud_tpu_torch.pipeline.graph import exact_f32, wants_exact_f32
 
 __all__ = ["MatteModel", "load_matte_model"]
 
@@ -55,6 +56,8 @@ class MatteModel:
         model.load_state_dict(state_dict, strict=True)
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
+        # f32 on CUDA runs without TF32 (``pipeline/graph.py``).
+        self.exact_f32 = wants_exact_f32(self.device, torch.float32)
         self._mean = torch.from_numpy(_MEAN).to(self.device)
         self._std = torch.from_numpy(_STD).to(self.device)
 
@@ -63,7 +66,8 @@ class MatteModel:
         """(B, S, S, 3) uint8 → (B, 512, 512) f32 foreground probability,
         resized back to the matte working resolution on the device."""
         x = torch.tensor(np.asarray(pixels_u8), device=self.device).float() / 255.0
-        logits = self.model((x - self._mean) / self._std)  # (B, S/4, S/4, C)
+        with exact_f32(self.exact_f32):
+            logits = self.model((x - self._mean) / self._std)  # (B, S/4, S/4, C)
         if self.num_labels == 1:
             prob = torch.sigmoid(logits[..., 0])
         else:

@@ -126,6 +126,10 @@ class ModelManager:
                 self._cache[name] = self._build(name)
             return self._cache[name]
 
+    def loaded(self) -> list[str]:
+        """The names of the models built so far, sorted."""
+        return sorted(self._cache)
+
     def _checkpoint(self, name: str) -> Path | None:
         if not self.checkpoint_dir:
             return None

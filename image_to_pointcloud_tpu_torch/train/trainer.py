@@ -37,6 +37,7 @@ from typing import Any, Callable
 import torch
 
 from image_to_pointcloud_tpu_torch.models.depth_anything import ModelConfig, build_model
+from image_to_pointcloud_tpu_torch.pipeline.graph import exact_f32, wants_exact_f32
 from image_to_pointcloud_tpu_torch.train.losses import (
     affine_invariant_loss,
     gradient_matching_loss,
@@ -111,6 +112,9 @@ class Trainer:
         self.cfg = cfg
         self.mesh = mesh
         self.device = mesh.device()
+        # The model is f32: on CUDA its forward and backward run without
+        # TF32 (``pipeline/graph.py``).
+        self.exact_f32 = wants_exact_f32(self.device, torch.float32)
         if any(isinstance(v, Sharded) for v in state_dict.values()):
             state_dict = gather_params(state_dict, torch.device("cpu"))
         # Built on the CPU and placed by MeshedModel, slot by slot.
@@ -158,8 +162,9 @@ class Trainer:
             rows = pixels.data_shards()
         else:
             rows = split_rows(self._global(pixels, torch.float32), self.mesh)
-        return torch.cat([self.net.forward_slot(d, r.float()).to(self.device)
-                          for d, r in enumerate(rows)])
+        with exact_f32(self.exact_f32):
+            return torch.cat([self.net.forward_slot(d, r.float()).to(self.device)
+                              for d, r in enumerate(rows)])
 
     def train_step(self, pixels, target, mask=None) -> torch.Tensor:
         """One optimization step on (B, H, W, 3) pixels and (B, H, W) depth
@@ -171,8 +176,9 @@ class Trainer:
         else:
             mask = self._global(mask, torch.bool)
         self.opt.zero_grad(set_to_none=True)
-        loss = self._loss(self._predict(pixels), target, mask)
-        loss.backward()
+        with exact_f32(self.exact_f32):  # the forward, the loss and the backward
+            loss = self._loss(self._predict(pixels), target, mask)
+            loss.backward()
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

@@ -13,6 +13,14 @@ dataclass that the surface pairs, each JAX parameter or field has a
 counterpart of the same name in the port, or stands in
 ``PARAMS_NOT_PORTED`` with the reason the port has none.
 
+Methods: for every JAX class that the surface pairs with a class of the
+port, each public method (properties included) has a counterpart of the
+same name, with each of its parameters, or stands in
+``METHODS_NOT_PORTED`` with the reason the port has none. The methods
+repaired to close this check (``ModelManager.loaded``, the ``neck`` views
+of ``DPTClassicConfig`` and ``ZoeDepthConfig``, and
+``DinoV2Backbone.finalize(taps, ph, pw)``) are held to the JAX package's.
+
 Parity, the same numpy inputs from a seed through the JAX function and
 its port (the JAX side as its own tests run it). Tolerances:
 
@@ -42,8 +50,11 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import functools
 import importlib
+import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,6 +64,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 JAX_PKG = REPO / "image_to_pointcloud_tpu"
 PORT_PKG = REPO / "image_to_pointcloud_tpu_torch"
+sys.path.insert(0, str(REPO / "tests"))
 
 # JAX name → the port's name, as "module path:name".
 RENAMED = {
@@ -133,6 +145,30 @@ PARAMS_NOT_PORTED = {
 }
 
 
+# Why a public method of a paired JAX class has no counterpart in the port,
+# as "module path:class:method".
+_SETUP = "Flax's setup(): an nn.Module builds its submodules in __init__"
+_WITH_DTYPE = "a Flax dtype field's setter: the port casts a module with .to(dtype)"
+METHODS_NOT_PORTED = {
+    "models/beit.py:BeitBackbone:setup": _SETUP,
+    "models/dinov2.py:DinoV2Backbone:setup": _SETUP,
+    "models/vit.py:ViTBackbone:setup": _SETUP,
+    "models/depth_anything.py:DepthAnythingConfig:with_dtype": _WITH_DTYPE,
+    "models/dpt_classic.py:DPTClassicConfig:with_dtype": _WITH_DTYPE,
+    "models/zoedepth.py:ZoeDepthConfig:with_dtype": _WITH_DTYPE,
+    "pipeline/graph.py:DepthPipeline:compiled_graph":
+        "the jitted XLA graph of a signature: PyTorch runs eagerly and compiles nothing",
+    "pipeline/graph.py:DepthPipeline:compiled_graph_jpeg":
+        "the jitted XLA graph of the JPEG ingest: PyTorch runs eagerly",
+    "pipeline/graph.py:DepthPipeline:pack_payload":
+        "packs one host buffer for a single XLA transfer; the port's submit_batch moves "
+        "each input with its own copy",
+    "pipeline/graph.py:DepthPipeline:select_sparse_caps":
+        "picks a JPEG batch's padded sparse caps from XLA's compiled buckets; the port "
+        "sizes each batch exactly",
+}
+
+
 def _parameters(path: Path) -> dict[str, list[str]]:
     """Public top-level function → its parameters; public class → its
     ``__init__``'s parameters, or (no ``__init__``) its annotated fields."""
@@ -173,6 +209,30 @@ def _paired_signatures() -> list[str]:
             if port_name in _parameters(PORT_PKG / port_rel):
                 pairs.append(key)
     return pairs
+
+
+@functools.cache
+def _methods(path: Path) -> dict[str, dict[str, list[str]]]:
+    """Public class → its public methods and properties → their
+    parameters (``self`` dropped)."""
+    out = {}
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            out[node.name] = {
+                b.name: [a for a in _arg_names(b.args) if a not in ("self", "cls")]
+                for b in node.body
+                if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef))
+                and not b.name.startswith("_")
+            }
+    return out
+
+
+def _paired_classes() -> list[str]:
+    """"module:class" of every JAX class whose port counterpart is a class."""
+    return [key for key in _paired_signatures()
+            if key.split(":")[1] in _methods(JAX_PKG / key.split(":")[0])
+            and RENAMED.get(key, key).split(":")[1]
+            in _methods(PORT_PKG / RENAMED.get(key, key).split(":")[0])]
 
 
 def _module_names(path: Path) -> tuple[list[str] | None, list[str], set[str]]:
@@ -258,6 +318,101 @@ def test_params_not_ported_name_real_gaps():
         assert param in _parameters(JAX_PKG / rel)[name], entry
         port_rel, port_name = RENAMED.get(key, key).split(":")
         assert param not in _parameters(PORT_PKG / port_rel)[port_name], entry
+
+
+@pytest.mark.parametrize("key", _paired_classes())
+def test_methods_have_a_counterpart(key):
+    """Each public method of the JAX class, with each of its parameters, is
+    the port class's too, or stands in METHODS_NOT_PORTED."""
+    rel, name = key.split(":")
+    port_rel, port_name = RENAMED.get(key, key).split(":")
+    ours = _methods(PORT_PKG / port_rel)[port_name]
+    for method, params in _methods(JAX_PKG / rel)[name].items():
+        if f"{key}:{method}" in METHODS_NOT_PORTED:
+            continue
+        assert method in ours, f"{key}: the port has no {method}"
+        missing = [p for p in params if p not in ours[method]]
+        assert not missing, f"{key}.{method}: the port has no parameter {missing}"
+
+
+def test_methods_not_ported_name_real_gaps():
+    """Each entry names a JAX method of a paired class that the port's
+    class really lacks, and gives a reason."""
+    pairs = set(_paired_classes())
+    for entry, reason in METHODS_NOT_PORTED.items():
+        rel, name, method = entry.split(":")
+        key = f"{rel}:{name}"
+        assert key in pairs and reason, entry
+        assert method in _methods(JAX_PKG / rel)[name], entry
+        port_rel, port_name = RENAMED.get(key, key).split(":")
+        assert method not in _methods(PORT_PKG / port_rel)[port_name], entry
+
+
+def test_model_manager_loaded_matches_jax():
+    """``loaded()`` lists the built models' names, sorted: two gets on the
+    port's manager, and JAX's method over the same cache."""
+    from image_to_pointcloud_tpu.serve.models import ModelManager as JManager
+    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
+
+    mm = ModelManager("cpu", model_target=56)
+    assert mm.loaded() == []
+    mm.get("midas-small")
+    mm.get("depth-anything-v2")
+    mm.get("midas-small")  # cached: listed once
+    jax_view = JManager.loaded(SimpleNamespace(_cache=dict.fromkeys(
+        ["midas-small", "depth-anything-v2"])))
+    assert mm.loaded() == jax_view == ["depth-anything-v2", "midas-small"]
+
+
+@pytest.mark.parametrize("family", ["dpt_classic", "zoedepth"])
+def test_config_neck_views_match_jax(family):
+    """The duck-typed ``cfg.neck`` of the two families without a DPTConfig
+    neck: relative for classic DPT, metric up to ``max_depth`` for
+    ZoeDepth, as the JAX configs give them; the advanced pipelines read
+    metric-ness from it."""
+    from image_to_pointcloud_tpu_torch.pipeline.advanced import _is_metric
+
+    jmod = importlib.import_module(f"image_to_pointcloud_tpu.models.{family}")
+    mod = importlib.import_module(f"image_to_pointcloud_tpu_torch.models.{family}")
+    cls = {"dpt_classic": "DPTClassicConfig", "zoedepth": "ZoeDepthConfig"}[family]
+    kw = {"max_depth": 7.5} if family == "zoedepth" else {}
+    ours, ref = getattr(mod, cls)(**kw).neck, getattr(jmod, cls)(**kw).neck
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.metric_depth == (family == "zoedepth") == _is_metric(getattr(mod, cls)(**kw))
+    if family == "zoedepth":
+        assert ours.max_depth == 7.5
+
+
+def test_dinov2_finalize_matches_jax(rng):
+    """``finalize(taps, ph, pw)``, the JAX signature: the same taps through
+    the final LayerNorm, CLS stripped, into (B, ph, pw, D) maps; f32
+    within 1e-5 (the LayerNorm's sums in another order)."""
+    import jax
+
+    from image_to_pointcloud_tpu.models.dinov2 import DinoV2Backbone as JBackbone
+    from image_to_pointcloud_tpu.models.dinov2 import DinoV2Config as JConfig
+    from image_to_pointcloud_tpu_torch.models.bridge import state_dict_from_flax
+    from image_to_pointcloud_tpu_torch.models.dinov2 import DinoV2Backbone, DinoV2Config
+
+    kw = dict(hidden_size=32, num_layers=2, num_heads=2, pos_embed_size=4, out_layers=(0, 1, 1, 1))
+    jbackbone = JBackbone(JConfig(**kw))
+    # Weights drawn with numpy into the Flax tree (eval_shape: no compile).
+    tree = jax.eval_shape(jbackbone.init, jax.random.PRNGKey(0), jnp.zeros((1, 56, 56, 3)))
+    params = jax.tree_util.tree_map(
+        lambda x: rng.normal(1.0, 0.2, x.shape).astype(np.float32), tree["params"])
+    model = DinoV2Backbone(DinoV2Config(**kw))
+    sd = state_dict_from_flax({"backbone": params})
+    model.load_state_dict({k.removeprefix("backbone."): v for k, v in sd.items()}, strict=True)
+    ph, pw = 3, 5
+    taps = [rng.normal(0, 1, (2, 1 + ph * pw, 32)).astype(np.float32) for _ in range(2)]
+    ref = jbackbone.apply({"params": params}, [jnp.asarray(t) for t in taps], ph, pw,
+                          method=JBackbone.finalize)
+    with torch.no_grad():
+        ours = model.finalize([_t(t) for t in taps], ph, pw)
+    assert len(ours) == len(ref) == 2
+    for o, r in zip(ours, ref):
+        assert o.shape == (2, ph, pw, 32)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("pkg", ["models", "ops"])

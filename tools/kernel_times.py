@@ -9,13 +9,18 @@ path, ``ModelManager(use_bf16=False)``), and K2 (the grid kNN at k =
 one JSON line with the card's name and power limit. The port is imported
 from ``PYTHONPATH`` first, so one copy of this script times any checkout:
 
-    PYTHONPATH=/path/to/checkout python3 tools/kernel_times.py
+    PYTHONPATH=/path/to/checkout python3 tools/kernel_times.py [--wide]
 
-Run two checkouts in turns (A, B, B, A) in one run on one card.
+``--wide`` adds paths that no preset serves: K1 above D = 128 at
+``chip_smoke.K1_WIDE_SHAPES`` in both dtypes, and K2's sorted kernels at
+(k, window) = (100, 5), (300, 8) and (500, 12) on the same cube. Without it the set is the served one, so
+earlier A/Bs stay comparable. Run two checkouts in turns (A, B, B, A) in
+one run on one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -26,10 +31,16 @@ import torch
 # After PYTHONPATH, so that the checkout under test supplies the port.
 sys.path.append(str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import device_time_ms, knn_cube  # noqa: E402
+from chip_smoke import K1_WIDE_SHAPES, device_time_ms, knn_cube  # noqa: E402
+
+K2_SORTED_PAIRS = [(100, 5), (300, 8), (500, 12)]
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--wide", action="store_true",
+                    help="also K1 above D = 128 and K2's sorted kernels")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: CUDA is not available")
     import image_to_pointcloud_tpu_torch as port
@@ -38,14 +49,18 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"port": str(Path(port.__file__).parent)}
+    k1_shapes = [(1, 6, 1370, 64), (1, 16, 577, 64)] + (K1_WIDE_SHAPES if args.wide else [])
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in [(1, 6, 1370, 64), (1, 16, 577, 64)]:
+        for shape in k1_shapes:
             q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
             out[f"K1 {shape} {str(dtype)[6:]} ms"] = device_time_ms(
                 lambda: flash_attention(q, k, v))
     pts = knn_cube(gen, (1, 259, 259, 3))
     out["K2 cube (1, 259, 259, 3) ms"] = device_time_ms(lambda: grid_knn_mean_distances_cuda(pts))
+    for k, r in K2_SORTED_PAIRS if args.wide else []:
+        out[f"K2 cube (1, 259, 259, 3) k={k} window={r} ms"] = device_time_ms(
+            lambda: grid_knn_mean_distances_cuda(pts, k=k, window=r))
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
