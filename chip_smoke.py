@@ -33,14 +33,16 @@ Phases (any failure exits non-zero, and the result lines are not printed):
    inputs are timed beside two bounds (the work no tap order can skip,
    and the reference's full cascade on every tap), with the share of the
    61 taps after the first 20 that insert into the top-20 list, per lane
-   and per 8×4 warp (replayed in plain torch). The general kernel at
-   (k, window) = (10, 7), (64, 8) and (1, 1), with taps from global
-   memory at (20, 12) and (64, 16), and the sorted kernels (k_eff > 64, a
+   and per 8×4 warp (replayed in plain torch). The general kernel
+   (k_eff <= 64) at (k, window) = (10, 7), (64, 8), (1, 1), (40, 2),
+   (16, 3), (20, 12), (64, 16), at the edges of its list sizes (9, 2),
+   (24, 3), (33, 4), (63, 5), and on either side of its halo's widest
+   window, (8, 50) and (8, 51), and the sorted kernels (k_eff > 64, a
    bitonic sort a warp a point) at (100, 5), (300, 8), (500, 12), (121,
    5), (1000, 15) (in registers) and (100, 16) (in shared memory), bit for
-   bit on the 259² cube, the surface and the NaN/inf grid; (10, 7) timed
-   on both 259² inputs and the other pairs but (64, 8), (1, 1) and (121,
-   5) on the cube, beside their bounds. The kernels line
+   bit on the 259² cube, the surface and the NaN/inf grid; every general
+   pair timed on both 259² inputs, the sorted ones but (121, 5) on the
+   cube, beside their bounds. The kernels line
    reports the cube at (20, 4), as every PR has; the rest rides along.
 5. K3 unproject vs its plain version, bit for bit, with u8 and f32
    images: (1, 518, 518) step 2 (one request), batch 2, odd N at steps
@@ -467,23 +469,30 @@ def _k2_check(name: str, pts: torch.Tensor, k: int = 20, window: int = 4) -> flo
     return err
 
 
-# K2 at (k, window) pairs other than the served (20, 4): the JAX tests'
-# (10, 7), the register list's largest (64, 8) and the smallest (1, 1); the
-# sorted kernels (k_eff = min(k, taps) > 64: (100, 5), (300, 8) with k_eff =
-# 289, (500, 12), k_eff = T at (121, 5), the largest register sort at
-# (1000, 15), the shared-memory sort at (100, 16)) and windows past the
-# halo tile ((20, 12), (64, 16)).
-K2_PAIRS = [(10, 7), (64, 8), (1, 1), (100, 5), (300, 8), (20, 12), (64, 16), (500, 12),
-            (121, 5), (1000, 15), (100, 16)]
-# Timed beside (10, 7): the new paths, on the random cube.
-K2_TIMED_PAIRS = {(100, 5), (300, 8), (20, 12), (64, 16), (500, 12), (1000, 15), (100, 16)}
+# K2 at (k, window) pairs other than the served (20, 4). The general
+# kernel (k_eff = min(k, taps) <= 64): the JAX tests' (10, 7), the largest
+# list at (64, 8), the smallest (1, 1), k above the taps at (40, 2) and
+# (16, 3), the wide windows (20, 12) and (64, 16); list sizes at their
+# edges (k_eff 9 a list of 16 with 7 entries at -inf, 24 and 63 the top
+# of theirs, 33 a list of 40), and the widest window of the halo tile
+# (50) beside the first on global taps (51). The sorted kernels (k_eff >
+# 64: (100, 5), (300, 8) with k_eff = 289, (500, 12), k_eff = T at
+# (121, 5), the largest register sort at (1000, 15), the shared-memory
+# sort at (100, 16)).
+K2_GENERAL_PAIRS = [(10, 7), (64, 8), (1, 1), (40, 2), (16, 3), (20, 12), (64, 16), (9, 2),
+                    (24, 3), (33, 4), (63, 5), (8, 50), (8, 51)]
+K2_SORTED_PAIRS = [(100, 5), (300, 8), (500, 12), (121, 5), (1000, 15), (100, 16)]
+K2_PAIRS = K2_GENERAL_PAIRS + K2_SORTED_PAIRS
+# Timed: every general pair on both 259² inputs, these sorted ones on the
+# cube.
+K2_TIMED_SORTED = {(100, 5), (300, 8), (500, 12), (1000, 15), (100, 16)}
 
 
 def _k2_pairs(gen: torch.Generator, surface: torch.Tensor) -> list[dict]:
     """The general and sorted kernels, bit for bit against the plain
-    version at each pair on the cube, the surface and a NaN/inf grid;
-    (10, 7) timed on both 259² inputs, the pairs of K2_TIMED_PAIRS on the
-    cube, beside the bound."""
+    version at each pair on the cube, the surface and a NaN/inf grid; the
+    general pairs timed on both 259² inputs, K2_TIMED_SORTED on the cube,
+    beside the bound."""
     from image_to_pointcloud_tpu_torch.ops.outlier import (
         grid_knn_mean_distances_cuda,
         grid_knn_mean_distances_plain,
@@ -501,8 +510,8 @@ def _k2_pairs(gen: torch.Generator, surface: torch.Tensor) -> list[dict]:
             err = _k2_check(f"k={k} window={r} {name}", pts, k=k, window=r)
             res = {"k": k, "window": r, "input": name, "shape": list(pts.shape),
                    "max_abs_err": err}
-            if ((k, r) == (10, 7) and name != "NaN/inf") or (
-                    (k, r) in K2_TIMED_PAIRS and name == "random cube"):
+            if ((k, r) in K2_GENERAL_PAIRS and name != "NaN/inf") or (
+                    (k, r) in K2_TIMED_SORTED and name == "random cube"):
                 b, hh, ww, _ = pts.shape
                 # Operations as the served row counts them: per in-grid tap
                 # 3 sub, 3 mul, 2 add and the compare with the list's last

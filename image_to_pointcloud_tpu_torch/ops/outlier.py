@@ -8,7 +8,10 @@ Counterpart of ``image_to_pointcloud_tpu/ops/outlier.py`` (the scan form
 ``outlier_keep_from_means``) and ``ops/outlier_pallas.py`` (the Pallas
 kernel). The kernel (``csrc/grid_knn.cu``) runs for CUDA tensors, at any
 k and window (k above :data:`MAX_REGISTER_K` with a window of at most
-:data:`MAX_SORTED_WINDOW`); CPU tensors take
+:data:`MAX_SORTED_WINDOW`): the served (20, 4) on a kernel of its own,
+up to 64 entries a general kernel that visits the taps from the centre
+out and inserts only what beats its k-th value, above them a sort of the
+window a warp a point; CPU tensors take
 :func:`grid_knn_mean_distances_plain`, the scan form written as a loop
 over the window offsets. Both keep k_eff = min(k, (2·window+1)²) entries:
 the scan form's entries past the window's taps stay 1e30 and are never
@@ -36,10 +39,12 @@ __all__ = [
 
 _BIG = 1e30
 _SENTINEL = 1e9
-# The kernel's paths (csrc/grid_knn.cu): a list in registers up to
-# k_eff = 64 entries (any window); above it a warp a point sorts the taps'
-# values (a bitonic network, in registers up to window 15, in shared memory
-# above: 2^⌈log2 (2·window+1)²⌉ floats a warp, so window <= 84).
+# The kernel's paths (csrc/grid_knn.cu): up to k_eff = 64 entries a list
+# in registers (a multiple of 8 entries), at any window: the taps by rings
+# from the centre out, from a halo tile in shared memory up to window 50
+# and from global memory above; above 64 entries a warp a point sorts the
+# taps' values (a bitonic network, in registers up to window 15, in shared
+# memory above: 2^⌈log2 (2·window+1)²⌉ floats a warp, so window <= 84).
 MAX_REGISTER_K = 64
 MAX_SORTED_WINDOW = 84
 # Windows above it would overflow the kernel's 32-bit offsets.
@@ -151,17 +156,18 @@ def grid_knn_mean_distances_cuda(
 
     (k, window) = (20, 4), the served pair, runs the kernel redesigned for
     it; any other pair the general kernel beside it (a list of up to 64
-    entries in registers) or, above 64 entries, a sorted one (a warp a
-    point runs a bitonic sort of the window's values, then sums the first
-    k_eff roots in ascending order, as the plain version's closed form
-    does). The input may be
+    entries in registers, filled by the taps nearest the centre, sorted,
+    then updated only by taps below its k_eff-th value) or, above 64
+    entries, a sorted one (a warp a point runs a bitonic sort of the
+    window's values, then sums the first k_eff roots in ascending order,
+    as the plain version's closed form does). The input may be
     any strided view whose row stride is ``ww`` point strides — e.g.
     ``packed[:, :3].transpose(1, 2).reshape(B, hh, ww, 3)`` of the planar
     (B, 8, N) point buffer, which the kernel reads in place. Bit-identical
     to :func:`grid_knn_mean_distances_plain`, NaN points included: the
-    served kernel visits the taps in another order (the sorted top-20 does
-    not depend on it), and both write 0 wherever a NaN distance makes the
-    plain version's mean 0.
+    served and general kernels visit the taps in another order (the
+    sorted top-k_eff does not depend on it), and every kernel writes 0
+    wherever a NaN distance makes the plain version's mean 0.
     """
     if not points_grid.is_cuda or points_grid.dtype != torch.float32:
         raise ValueError(
