@@ -97,6 +97,25 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     path must launch K1 exactly 12 (DA-V2, int8 too), 24 (``dpt-large``)
     or 0 (``zoedepth``) times a request, and K2 and K3 once; every PLY
     must hold finite points whose depth is not flat.
+12b. (after 11b) one CUDA graph per signature (``DepthPipeline.
+    compiled_graph``, ``compiled_graph_jpeg``): for DA-V2 bf16 (PNG, and
+    JPEG through the sparse and the dense payload), ``dpt-large``,
+    ``zoedepth``, int8 DA-V2 and f32 DA-V2 at full width, 518², buckets 1
+    and 4, each on a fresh pipeline over the served model: the replay
+    against the signature's eager body (``fn.run``, which is
+    ``_run_slots``) on the same payload, byte for byte (the bundle and the
+    preview; where bytes differ, the fallback rule is logged and checked:
+    the graph's bundle equals the CPU codec on the graph's own depth, and
+    that depth is within ``SLICE_RMSE`` of eager's); the launches of a
+    replay exactly the eager forward's (K1 one a layer, K2 and K3 one a
+    batch; the capture counts none); capture time and the pool's memory.
+    Two DA-V2 batches submitted before either is collected equal the
+    sequential runs; a 400×300 signature is captured on this thread while
+    another replays 518². A v1 app at ``max_batch=4``, warmup 518² and
+    ``jpeg_device_decode``: the warmup captures exactly buckets 1, 2, 4
+    on both ingests; a drain of three queued frames goes out as one
+    bucket of 4 with three results; three concurrent requests capture
+    nothing new (their drain sizes are logged).
 13. a ``triposr`` request, and the dummy graphs on the card vs the CPU,
     bit for bit.
 14. the CLI (``cli.main``) on the card at full width: ``highres`` on a
@@ -106,7 +125,11 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     ply, las, xyz, pcd and glb and once with ``--int8``; each run held to
     its exact K1/K2/K3 launches, each output file read back.
 15. batch-1 ``submit_batch`` + ``collect`` medians, in turns: PNG with
-    the f32 return, PNG with the quantized bundle, JPEG with the bundle.
+    the f32 return, PNG with the quantized bundle, JPEG with the bundle;
+    then DA-V2 (PNG, JPEG, int8, f32), ``dpt-large`` and ``zoedepth`` at
+    batch 1 and at bucket 4, the graph against the eager forward in turns,
+    the median per image (the busy share of each is measured last but
+    one, so that no profiler session precedes a timing).
 16. the v2 server in this process at full width (DA-V2-Small, random
     init): two 512² PNG generations, one with ``remove_background`` and no
     remesh, one with ``remesh_option=triangle`` and ``target_count=2000``,
@@ -154,7 +177,10 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     model=2``) behind the v1 app, three PNG requests of exactly 48 K1, 2
     K2 and 2 K3. Host walls of a TP, a DP and a GPipe request beside the
     unmeshed ones.
-20. ``/profile/start`` and ``/profile/stop`` around one ``dpt-large``
+20. the device's busy share of each of phase 15's runs (eager and graph,
+    batch 1 and 4), as ``tools/profile_torch_pipeline.py`` measures it:
+    CUDA kernel time in a ``torch.profiler`` window over the window's wall.
+21. ``/profile/start`` and ``/profile/stop`` around one ``dpt-large``
     request: the Chrome trace must exist and name the CUDA kernels. Last,
     so that no profiler session precedes the timings of phase 15.
 
@@ -178,6 +204,7 @@ nothing of the JAX package (it checks ``sys.modules`` at the end).
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import statistics
 import subprocess
@@ -794,10 +821,49 @@ def _stage_hooks(model) -> tuple[dict, list]:
     return caps, hooks
 
 
+def _eager_submit(pipe, imgs: np.ndarray, depth_scale: float = 15.0):
+    """``pipe.submit_batch(imgs)`` without its CUDA graph: the signature's
+    eager body (``_run_slots`` through ``fn.run``: every forward's Python
+    runs, so hooks and wrappers see it) on the same payload, and the same
+    handle."""
+    from image_to_pointcloud_tpu_torch.pipeline.graph import PipelineOptions
+
+    opts = PipelineOptions()
+    b, h, w = imgs.shape[:3]
+    pad = pipe._data_pad(b)
+    run_imgs = np.concatenate([imgs, imgs[-1:].repeat(pad, 0)]) if pad else imgs
+    scales = np.full((b + pad,), depth_scale, np.float32)
+    fn = pipe.compiled_graph(b + pad, (h, w), opts, True)
+    out, prev = fn.run(torch.from_numpy(pipe.pack_payload(run_imgs, scales)))
+    return pipe._handle(out, prev, (h, w), opts, scales[:b], b, imgs=imgs)
+
+
+def _eager_submit_jpeg(pipe, jpegs: list, depth_scale: float = 15.0):
+    """``pipe.submit_batch_jpeg(jpegs)`` without its CUDA graph, as
+    :func:`_eager_submit`."""
+    from image_to_pointcloud_tpu_torch.pipeline.graph import PipelineOptions
+
+    opts = PipelineOptions()
+    b, spec = len(jpegs), jpegs[0].spec
+    scales = np.full((b,), depth_scale, np.float32)
+    cols = [j.grid_colors(2) for j in jpegs]
+    host_rgb = (np.stack(cols) if pipe.quantized_transfer and pipe.host_colors_enabled
+                and all(c is not None for c in cols) else None)
+    caps = pipe.select_sparse_caps(jpegs)
+    fn = pipe.compiled_graph_jpeg(b, spec, opts, True, sparse_cap=caps,
+                                  host_colors=host_rgb is not None)
+    payload = (pipe.pack_jpeg_sparse_payload(jpegs, scales, *caps) if caps is not None
+               else pipe.pack_jpeg_payload(jpegs, scales))
+    out, prev = fn.run(torch.from_numpy(payload))
+    return pipe._handle(out, prev, (spec.height, spec.width), opts, scales, b, host_rgb=host_rgb)
+
+
 def _served_stages(pipe, frame: np.ndarray) -> tuple[dict, object]:
+    """The stages of one eager forward (hooks run only where Python runs:
+    not in a graph's replay) and its result."""
     caps, hooks = _stage_hooks(pipe.model)
     try:
-        res = pipe.run(frame, depth_scale=15.0)
+        res = pipe.collect(_eager_submit(pipe, frame[None]))[0]
     finally:
         for h in hooks:
             h.remove()
@@ -867,7 +933,8 @@ F32_FULL_WIDTH_TOL = 1e-4
 F32_SERVED = (("depth-anything-v2", 12), ("dpt-large", 24))
 
 
-def phase_full_width_f32(out_dir: str, cpu_stages: dict) -> tuple[dict[str, int], dict]:
+def phase_full_width_f32(out_dir: str, cpu_stages: dict, f32_models
+                         ) -> tuple[dict[str, int], dict]:
     """``ModelManager("cuda", use_bf16=False)``: each model's f32 forward on
     the card against the CPU's stages from :func:`phase_full_width` (the
     same seeded weights and frame), every stage logged, the head's raw
@@ -876,12 +943,10 @@ def phase_full_width_f32(out_dir: str, cpu_stages: dict) -> tuple[dict[str, int]
     forward and restored after. Then two 518² PNG requests of each model
     through the v1 app, each read on its own: K1 (all f32 launches, the
     model being f32) exactly 12 / 24 times a request, K2 and K3 once,
-    PLYs not flat. Returns the launch counts and per-request counts."""
-    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
-
+    PLYs not flat. ``f32_models`` is ``ModelManager("cuda",
+    use_bf16=False)``. Returns the launch counts and per-request counts."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True  # torch's defaults
-    f32_models = ModelManager("cuda", use_bf16=False)
     frame = _frame(518, 518, 0)
     failed = []
     for name, _ in F32_SERVED:
@@ -929,6 +994,17 @@ def _host_kernels() -> str:
             f"{torch.get_num_threads()} threads, cuDNN {torch.backends.cudnn.version()}")
 
 
+class _Recorded:
+    """Mixin of a DepthPipeline that keeps the inputs and bytes of the last
+    device→host bundle it built (in a graph: the capture's tensors, which
+    hold each replay's values)."""
+
+    def _bundle(self, dn_s, keep, pix, *, ycc):
+        out = super()._bundle(dn_s, keep, pix, ycc=ycc)
+        self.last_bundle = (dn_s, keep, pix, ycc, out)
+        return out
+
+
 def _rmse(a, b) -> float:
     """Per-point RMSE of two results' packed points, on points both keep."""
     both = (a.packed[6] > 0.5) & (b.packed[6] > 0.5)
@@ -952,13 +1028,7 @@ def _slice_card_vs_cpu(family: str, cpu_model, gpu_model, target) -> None:
     its threads and at one thread (the noise floor of f32 itself)."""
     from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
 
-    class Recording(DepthPipeline):
-        """Keeps the inputs and bytes of its last device→host bundle."""
-
-        def _bundle(self, dn_s, keep, pix, *, ycc):
-            out = super()._bundle(dn_s, keep, pix, ycc=ycc)
-            self.last_bundle = (dn_s, keep, pix, ycc, out)
-            return out
+    Recording = type("Recording", (_Recorded, DepthPipeline), {})
 
     def run(model, quantized):
         pipe = Recording(model, model_target=target, quantized_transfer=quantized)
@@ -1427,6 +1497,230 @@ def phase_server(out_dir: str, models, int8_models
     return counts, per_request
 
 
+# ---------- phase 12b: one CUDA graph per signature ----------
+
+# The paths whose graphs are held against their eager forward at full
+# width, 518²: (label, model, ModelManager kind, ingest, K1 launches a batch).
+GRAPH_PATHS = [
+    ("DA-V2 PNG", "depth-anything-v2", "bf16", "png", 12),
+    ("DA-V2 JPEG sparse", "depth-anything-v2", "bf16", "jpeg-sparse", 12),
+    ("DA-V2 JPEG dense", "depth-anything-v2", "bf16", "jpeg-dense", 12),
+    ("dpt-large", "dpt-large", "bf16", "png", 24),
+    ("zoedepth", "zoedepth", "bf16", "png", 0),
+    ("DA-V2 int8", "depth-anything-v2", "int8", "png", 12),
+    ("DA-V2 f32", "depth-anything-v2", "f32", "png", 12),
+]
+GRAPH_BUCKETS = (1, 4)
+
+
+def _graph_signature(pipe, ingest: str, batch: int, seed: int = 0):
+    """(fn, host payload) of one served signature: ``batch`` 518² frames
+    through the pixel ingest or a q88 JPEG's sparse or dense payload."""
+    from image_to_pointcloud_tpu_torch.pipeline.graph import PipelineOptions, plan_jpeg_input
+
+    opts = PipelineOptions()
+    scales = np.full((batch,), 15.0, np.float32)
+    if ingest == "png":
+        imgs = np.stack([_frame(518, 518, seed + i) for i in range(batch)])
+        return pipe.compiled_graph(batch, (518, 518), opts, True), pipe.pack_payload(imgs, scales)
+    jpegs = [plan_jpeg_input(_jpeg(518, 518, seed + i)) for i in range(batch)]
+    host = all(j.grid_colors(2) is not None for j in jpegs)
+    if ingest == "jpeg-sparse":
+        caps = pipe.select_sparse_caps(jpegs)
+        if caps is None:
+            raise AssertionError("the q88 518² JPEG did not take the sparse payload")
+        return (pipe.compiled_graph_jpeg(batch, jpegs[0].spec, opts, True, sparse_cap=caps,
+                                         host_colors=host),
+                pipe.pack_jpeg_sparse_payload(jpegs, scales, *caps))
+    return (pipe.compiled_graph_jpeg(batch, jpegs[0].spec, opts, True, host_colors=host),
+            pipe.pack_jpeg_payload(jpegs, scales))
+
+
+def _graph_vs_eager(label: str, pipe, fn, payload: np.ndarray, k1: int) -> dict:
+    """One signature: its capture (timed, with the pool's growth), one
+    replay against the eager body on the same payload (bytes; launches),
+    each checked."""
+    from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
+
+    pool0 = pipe.graph_pool_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(payload)  # capture, then the first replay
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    pool = pipe.graph_pool_bytes()
+    _reset()
+    out, prev = fn(payload)
+    torch.cuda.synchronize()
+    replay_counts, graph_bundle = _counts(), pipe.last_bundle
+    _reset()
+    eout, eprev = fn.run(torch.from_numpy(payload).to(pipe.device))
+    torch.cuda.synchronize()
+    eager_counts, eager_bundle = _counts(), pipe.last_bundle
+    same = torch.equal(out, eout) and torch.equal(prev, eprev)
+    rule = "bytes equal"
+    if not same:
+        # The stated fallback: the graph's bundle is the CPU codec on the
+        # graph's own depth, and that depth is near eager's.
+        dn_s, keep, pix, ycc, sent = graph_bundle
+        replay = DepthPipeline._bundle(pipe, dn_s.cpu(), keep.cpu(),
+                                       None if pix is None else pix.cpu(), ycc=ycc)
+        depth_rmse = 15.0 * float((dn_s - eager_bundle[0]).float().pow(2).mean().sqrt())
+        prev_diff = int((prev.int() - eprev.int()).abs().max())
+        same = torch.equal(sent.cpu(), replay) and depth_rmse < SLICE_RMSE and prev_diff <= 1
+        rule = (f"bytes DIFFER ({int((out != eout).sum())} of {out.numel()}); fallback: bundle == "
+                f"CPU codec on the graph's depth {torch.equal(sent.cpu(), replay)}, depth rmse "
+                f"vs eager {depth_rmse:.3e} (< {SLICE_RMSE}), preview max diff {prev_diff}")
+    b = payload.shape[0]
+    expected = {"flash_attention": k1, "grid_knn": 1, "unproject": 1}
+    row = {"batch": b, "capture_s": fn.capture_s, "first_call_s": first_s,
+           "pool_bytes": pool, "pool_growth_bytes": pool - pool0,
+           "launches_replay": replay_counts, "launches_eager": eager_counts, "equal": same}
+    log(f"graph {label} batch {b}: {rule}; launches a replay {replay_counts}, eager "
+        f"{eager_counts}; capture {fn.capture_s:.3f} s (first call {first_s:.3f} s); "
+        f"pool {pool / 2**20:.1f} MiB (+{(pool - pool0) / 2**20:.1f})")
+    if not same or replay_counts != eager_counts or replay_counts != expected:
+        raise AssertionError(f"the {label} graph at batch {b} disagrees with its eager forward "
+                             f"(launches {replay_counts}, expected {expected})")
+    return row
+
+
+def _graph_in_flight(pipe) -> None:
+    """Two submits before either collect equal the sequential runs; a
+    400×300 signature captured on this thread while another replays 518²."""
+    a, b = _frame(518, 518, 21), _frame(518, 518, 22)
+    seq = [pipe.collect(pipe.submit_batch([x], depth_scales=15.0))[0] for x in (a, b)]
+    handles = [pipe.submit_batch([x], depth_scales=15.0) for x in (a, b)]
+    both = [pipe.collect(h)[0] for h in handles]
+    intact = all(np.array_equal(s.points, r.points) and np.array_equal(s.colors, r.colors)
+                 for s, r in zip(seq, both))
+    errors, replays = [], []
+
+    def replay():
+        try:
+            for _ in range(20):
+                replays.append(pipe.collect(pipe.submit_batch([a], depth_scales=15.0))[0])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    before = len(pipe._compiled)
+    thread = threading.Thread(target=replay)
+    thread.start()
+    t0 = time.perf_counter()
+    other = pipe.collect(pipe.submit_batch([_frame(300, 400, 23)], depth_scales=15.0))[0]
+    capture_wall = time.perf_counter() - t0
+    thread.join(timeout=300)
+    steady = all(np.array_equal(r.points, seq[0].points) for r in replays)
+    log(f"graph two in flight == sequential {intact}; 400x300 captured in {capture_wall:.3f} s "
+        f"while another thread replayed 518² {len(replays)} times (all equal {steady}, errors "
+        f"{errors}); {other.raw_point_count} points")
+    if not (intact and steady and not errors and not thread.is_alive()
+            and len(pipe._compiled) == before + 1):
+        raise AssertionError("graphs in flight or captured beside a replay came back wrong")
+
+
+def _graph_warmup(out_dir: str, models) -> dict:
+    """A v1 app at ``max_batch=4`` (the CLI's ``IPC_TPU_MAX_BATCH=4``),
+    warmup size 518², ``jpeg_device_decode`` on, over a fresh pipeline of
+    the served DA-V2: the warmup captures buckets 1, 2, 4 on both ingests.
+    Then a drain of three queued frames (padded to bucket 4, three
+    results) and three concurrent 518² PNG requests through the server:
+    the drains' sizes (real, and padded to a bucket), and no capture after
+    the warmup."""
+    from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline, PipelineOptions
+    from image_to_pointcloud_tpu_torch.serve import metrics
+    from image_to_pointcloud_tpu_torch.serve.batching import BatchingQueue
+    from image_to_pointcloud_tpu_torch.serve.models import ModelManager
+
+    served = models.get("depth-anything-v2")
+    pipe = DepthPipeline(served.model, model_target=served.model_target)
+    mm = ModelManager("cuda")
+    mm._cache["depth-anything-v2"] = pipe
+    srv = _Server(out_dir, mm, max_batch=4, warmup_sizes=[(518, 518)], jpeg_device_decode=True)
+    try:
+        t0 = time.perf_counter()
+        srv.app.warmup()
+        warm_s = time.perf_counter() - t0
+        keys = sorted((k[0], k[1]) for k in pipe._compiled)
+        captures = {f"{k[0]} b{k[1]}": round(fn.capture_s, 4) for k, fn in pipe._compiled.items()}
+        pool = pipe.graph_pool_bytes()
+        log(f"warmup at max_batch=4: {len(keys)} graphs {keys} in {warm_s:.2f} s, capture s "
+            f"{captures}, shared pool {pool / 2**20:.1f} MiB")
+        if keys != [(k, b) for k in ("depth", "depth-jpeg") for b in (1, 2, 4)] or not all(
+                fn.graph is not None for fn in pipe._compiled.values()):
+            raise AssertionError(f"the warmup captured {keys}, not 3 buckets x 2 ingests")
+        drains: list[int] = []
+        submit = pipe.submit_batch
+        pipe.submit_batch = lambda imgs, **kw: drains.append(len(imgs)) or submit(imgs, **kw)
+
+        async def drain_of_three():
+            queue = BatchingQueue(pipe, max_batch=4, window_ms=50.0)
+            try:
+                return await asyncio.gather(*(queue.submit(_frame(518, 518, 30 + i), 15.0,
+                                                           PipelineOptions()) for i in range(3)))
+            finally:
+                await queue.close()
+
+        queued = asyncio.run(drain_of_three())
+        log(f"a drain of three queued 518² frames at max_batch=4: submitted as {drains}, "
+            f"{len(queued)} results of {[r.kept_point_count for r in queued]} points")
+        if drains != [4] or len(queued) != 3 or not all(r.kept_point_count for r in queued):
+            raise AssertionError(f"a drain of 3 went out as {drains}, not one bucket of 4")
+        drains.clear()
+        n0, s0 = (sum(sum(c) for c in metrics.BATCH_SIZE._counts.values()),
+                  sum(metrics.BATCH_SIZE._sums.values()))
+        results = [None] * 3
+
+        def request(i):
+            results[i] = _request(srv.base, _png(518, 518, 30 + i))
+
+        threads = [threading.Thread(target=request, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        for lat, st, ply in results:
+            _check_ply(ply, st["results"]["pointCloud"]["points"])
+        real = (sum(sum(c) for c in metrics.BATCH_SIZE._counts.values()) - n0,
+                sum(metrics.BATCH_SIZE._sums.values()) - s0)
+        log(f"three concurrent 518² PNG requests at max_batch=4: drains of {drains} "
+            f"(bucket sizes), {real[0]} drains holding {real[1]:g} real images; graphs "
+            f"after them {len(pipe._compiled)}")
+        if any(d not in (1, 2, 4) for d in drains) or len(pipe._compiled) != 6:
+            raise AssertionError("a drain left the buckets or a request captured a graph")
+    finally:
+        srv.stop()
+    return {"warmup_s": warm_s, "captures_s": captures, "pool_bytes": pool, "drains": drains}
+
+
+def phase_graphs(out_dir: str, models, int8_models, f32_models) -> dict:
+    """Each served path's graph at full width, 518², buckets 1 and 4, on a
+    fresh pipeline over the served model (its own cache and pool): the
+    replay against the eager body on the same payload, byte for byte (or
+    the fallback rule, logged), the launches of a replay exactly the eager
+    forward's (K1 one a layer, K2 and K3 one a batch), the capture's time
+    and the pool's size; two batches in flight; a capture beside a replay;
+    the warmup at ``max_batch=4``."""
+    from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline
+
+    managers = {"bf16": models, "int8": int8_models, "f32": f32_models}
+    out = {}
+    for label, name, kind, ingest, k1 in GRAPH_PATHS:
+        served = managers[kind].get(name)
+        pipe = type("Recording", (_Recorded, DepthPipeline), {})(
+            served.model, model_target=served.model_target)
+        out[label] = [_graph_vs_eager(label, pipe, *_graph_signature(pipe, ingest, b), k1)
+                      for b in GRAPH_BUCKETS]
+        del pipe  # its graphs and pool
+        gc.collect()
+        torch.cuda.empty_cache()
+    served = models.get("depth-anything-v2")
+    _graph_in_flight(DepthPipeline(served.model, model_target=served.model_target))
+    out["warmup"] = _graph_warmup(out_dir, models)
+    log(f"graph phase numbers: {json.dumps(out, default=str)}")
+    return out
+
+
 def phase_triposr(base: str) -> None:
     """A dummy-model request, and the dummy graphs on the card against the
     CPU, bit for bit."""
@@ -1483,9 +1777,43 @@ def _stop(loop, thread, server, app) -> None:
     app.jobs.close()
 
 
-def phase_timing(models, reps: int = 20) -> None:
-    """Batch-1 submit+collect, host wall time to the collected result, as
-    the batcher runs it (no packed buffer, gray preview), in turns."""
+# Phase 15's eager-vs-graph paths: (label, model, ModelManager kind, ingest).
+TIMED_PATHS = [
+    ("DA-V2 PNG", "depth-anything-v2", "bf16", "png"),
+    ("DA-V2 JPEG", "depth-anything-v2", "bf16", "jpeg"),
+    ("DA-V2 int8", "depth-anything-v2", "int8", "png"),
+    ("DA-V2 f32", "depth-anything-v2", "f32", "png"),
+    ("dpt-large", "dpt-large", "bf16", "png"),
+    ("zoedepth", "zoedepth", "bf16", "png"),
+]
+
+
+def _timed_runs(pipe, ingest: str, batch: int) -> dict:
+    """The graph's and the eager forward's submit+collect of ``batch`` 518²
+    frames on ``pipe``, as the batcher collects (no packed buffer, gray
+    preview)."""
+    from image_to_pointcloud_tpu_torch.pipeline.graph import plan_jpeg_input
+
+    kw = {"want_packed": False, "want_preview_rgb": False}
+    if ingest == "png":
+        imgs = np.stack([_frame(518, 518, 40 + i) for i in range(batch)])
+        return {"graph": lambda: pipe.collect(pipe.submit_batch(imgs, depth_scales=15.0), **kw),
+                "eager": lambda: pipe.collect(_eager_submit(pipe, imgs), **kw)}
+    jpegs = [plan_jpeg_input(_jpeg(518, 518, 40 + i)) for i in range(batch)]
+    for j in jpegs:
+        j.grid_colors(2)  # the server's planner does this off the drain
+    return {"graph": lambda: pipe.collect(pipe.submit_batch_jpeg(jpegs, depth_scales=15.0), **kw),
+            "eager": lambda: pipe.collect(_eager_submit_jpeg(pipe, jpegs), **kw)}
+
+
+def phase_timing(models, int8_models, f32_models, reps: int = 20) -> dict:
+    """Submit+collect, host wall time to the collected result, as the
+    batcher runs it (no packed buffer, gray preview), in turns: batch 1
+    through PNG with the f32 return, PNG with the quantized bundle and
+    JPEG with the bundle; then each of ``TIMED_PATHS`` at batch 1 and at
+    bucket 4, its graph and its eager forward in turns (eager, graph,
+    graph, eager), the median per image. Returns the runs, for the busy
+    share measured last (:func:`phase_busy_share`)."""
     from image_to_pointcloud_tpu_torch.pipeline import graph
 
     served = models.get("depth-anything-v2")
@@ -1505,7 +1833,7 @@ def phase_timing(models, reps: int = 20) -> None:
     }
     walls = {name: [] for name in runs}
     for fn in runs.values():
-        fn()  # warm-up
+        fn()  # warm-up (the capture)
     for _ in range(reps):
         for name, fn in runs.items():
             torch.cuda.synchronize()
@@ -1515,6 +1843,59 @@ def phase_timing(models, reps: int = 20) -> None:
     for name, w in walls.items():
         log(f"batch-1 submit+collect 518x518 {name}: median {statistics.median(w) * 1e3:.2f} ms "
             f"(min {min(w) * 1e3:.2f}, max {max(w) * 1e3:.2f}) over {reps}, in turns")
+
+    managers = {"bf16": models, "int8": int8_models, "f32": f32_models}
+    timed: dict = {}
+    for label, name, kind, ingest in TIMED_PATHS:
+        pipe = managers[kind].get(name)
+        for batch in (1, 4):
+            modes = _timed_runs(pipe, ingest, batch)
+            for fn in modes.values():
+                fn()  # warm-up (the graph's capture)
+            walls = {"eager": [], "graph": []}
+            for _ in range(max(4, reps // batch // 2)):
+                for mode in ("eager", "graph", "graph", "eager"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    modes[mode]()
+                    walls[mode].append(time.perf_counter() - t0)
+            per_image = {m: statistics.median(w) * 1e3 / batch for m, w in walls.items()}
+            timed[(label, batch)] = {"runs": modes, "ms_per_image": per_image}
+            log(f"submit+collect 518x518 {label} batch {batch}: per image eager "
+                f"{per_image['eager']:.3f} ms, graph {per_image['graph']:.3f} ms "
+                f"({len(walls['graph'])} each, in turns)")
+    return timed
+
+
+def phase_busy_share(timed: dict, iters: int = 5) -> dict:
+    """The device's busy share of phase 15's runs, as
+    ``tools/profile_torch_pipeline.py`` measures it: the CUDA kernels'
+    time in a ``torch.profiler`` window over ``iters`` runs, over the
+    window's wall time, with the kernels a run. Last but /profile, so that
+    no profiler session precedes the timings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for (label, batch), entry in timed.items():
+        for mode, fn in entry["runs"].items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                window = time.perf_counter() - t0
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in events) / 1e6
+            kernels = sum(e.count for e in events) // iters
+            out[f"{label} b{batch} {mode}"] = {"busy_share": busy / window,
+                                               "device_ms_per_run": busy * 1e3 / iters,
+                                               "kernels_per_run": kernels}
+            log(f"busy share 518x518 {label} batch {batch} {mode}: {busy / window:.3f} "
+                f"(device {busy * 1e3 / iters:.3f} ms a run, window {window * 1e3:.1f} ms over "
+                f"{iters}, {kernels} device ops a run)")
+    return out
 
 
 # The v2 generations that are checked one by one: (form fields). Each is a
@@ -1998,9 +2379,9 @@ def _reset() -> None:
 
 
 def _raw_run(pipe, frames: list, depth_scale: float = 15.0):
-    """``pipe.run_batch(frames)`` with each data slot's raw model output
-    kept (f32): (raw depth of the whole batch, padding rows included; the
-    results)."""
+    """``pipe.run_batch(frames)``, eagerly, with each data slot's raw model
+    output kept (f32): (raw depth of the whole batch, padding rows
+    included; the results)."""
     caps = []
     slots = pipe._slots
 
@@ -2013,7 +2394,7 @@ def _raw_run(pipe, frames: list, depth_scale: float = 15.0):
 
     pipe._slots = [(dev, keep(fwd)) for dev, fwd in slots]
     try:
-        res = pipe.run_batch(np.stack(frames), depth_scales=depth_scale)
+        res = pipe.collect(_eager_submit(pipe, np.stack(frames), depth_scale))
     finally:
         pipe._slots = slots
     return torch.cat([c.to(caps[0].device) for c in caps]), res
@@ -2483,7 +2864,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         int8_models = ModelManager("cuda", int8=True)
         counts, per_request = timed(phase_server, out_dir, models, int8_models)
-        f32_counts, f32_runs = timed(phase_full_width_f32, out_dir, cpu_stages)
+        f32_models = ModelManager("cuda", use_bf16=False)
+        f32_counts, f32_runs = timed(phase_full_width_f32, out_dir, cpu_stages, f32_models)
+        timed(phase_graphs, out_dir, models, int8_models, f32_models)
         cpu_stages.clear()
         for name, c in f32_counts.items():
             counts[name] += c
@@ -2492,7 +2875,7 @@ def main() -> int:
         for name, c in cli_counts.items():
             counts[name] += c
             per_request[name].update(cli_runs[name])
-        timed(phase_timing, models)
+        timed_runs = timed(phase_timing, models, int8_models, f32_models)
         v2_counts = timed(phase_v2, out_dir, models)
         matte_counts = timed(phase_matte, models)
         train = timed(phase_train, out_dir, models)
@@ -2506,6 +2889,7 @@ def main() -> int:
         for name, c in mesh_counts.items():
             counts[name] += c
             per_request[name].update(mesh_runs[name])
+        timed(phase_busy_share, timed_runs)
         timed(phase_profile, out_dir, models)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 

@@ -11,11 +11,16 @@ whole file. A lock serializes the build inside one process (the server's
 executor threads can reach the first launch together).
 
 Each kernel has a :class:`Kernel` counter that its wrapper increments
-where, and only where, it launches the kernel.
+where, and only where, it launches the kernel. The wrappers count when
+they enqueue; inside a CUDA graph capture (:func:`recording_launches`)
+nothing is launched, so the enqueue is recorded instead, and
+:func:`replayed` adds the recorded launches on each replay of the graph:
+a counter is the number of launches on the card either way.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,6 +38,8 @@ __all__ = [
     "UNPROJECT",
     "check",
     "library",
+    "recording_launches",
+    "replayed",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -45,6 +52,10 @@ NVCC_FLAGS = (
 )
 
 
+# The launch record of the capture under way on this thread, if any.
+_capture = threading.local()
+
+
 class Kernel:
     """Launch counter of one hand-written kernel."""
 
@@ -54,12 +65,40 @@ class Kernel:
         self._lock = threading.Lock()
 
     def count(self) -> None:
+        """One launch enqueued: counted, or recorded by the capture under
+        way on this thread (a capture launches nothing)."""
+        record = getattr(_capture, "launches", None)
+        if record is not None:
+            record[self] = record.get(self, 0) + 1
+            return
+        self.add(1)
+
+    def add(self, n: int) -> None:
         with self._lock:
-            self.launches += 1
+            self.launches += n
 
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While a CUDA graph is captured on this thread: yields a dict that
+    collects the launches each :class:`Kernel` enqueues into the graph,
+    counted on no counter. Pass it to :func:`replayed` on every replay."""
+    outer = getattr(_capture, "launches", None)
+    _capture.launches = record = {}
+    try:
+        yield record
+    finally:
+        _capture.launches = outer
+
+
+def replayed(record: dict) -> None:
+    """One replay of a captured graph: its recorded launches counted."""
+    for kernel, n in record.items():
+        kernel.add(n)
 
 
 FLASH_ATTENTION = Kernel("flash_attention")

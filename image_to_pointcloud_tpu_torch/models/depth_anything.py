@@ -23,6 +23,7 @@ from image_to_pointcloud_tpu_torch.models.dpt import DPTConfig, DPTNeckHead
 from image_to_pointcloud_tpu_torch.models.dpt_classic import DPTClassic, DPTClassicConfig
 from image_to_pointcloud_tpu_torch.models.vit import ViTConfig
 from image_to_pointcloud_tpu_torch.models.zoedepth import ZoeDepth, ZoeDepthConfig
+from image_to_pointcloud_tpu_torch.utils.constants import device_constant
 
 __all__ = [
     "IMAGENET_MEAN",
@@ -164,8 +165,10 @@ class DepthAnything(nn.Module):
 
 def normalize_pixels(rgb01: torch.Tensor) -> torch.Tensor:
     """ImageNet mean/std normalization of (…, 3) RGB in [0, 1]."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=rgb01.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=rgb01.device)
+    mean = device_constant(("pixel_mean", tuple(IMAGENET_MEAN)), rgb01.device, torch.float32,
+                           lambda: IMAGENET_MEAN)
+    std = device_constant(("pixel_std", tuple(IMAGENET_STD)), rgb01.device, torch.float32,
+                          lambda: IMAGENET_STD)
     return (rgb01 - mean) / std
 
 

@@ -22,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from image_to_pointcloud_tpu_torch.models.attention import multi_head_attention
 from image_to_pointcloud_tpu_torch.models.quantize import block_dense
-from image_to_pointcloud_tpu_torch.ops.resize import resample_matrix
+from image_to_pointcloud_tpu_torch.ops.resize import resample_weights
 
 __all__ = ["Block", "DinoV2Backbone", "DinoV2Config", "residual", "run_blocks", "tp_width"]
 
@@ -155,10 +155,9 @@ class DinoV2Backbone(nn.Module):
             return pos
         # Resampled in f32 whatever the model dtype, CLS slot untouched.
         grid = pos[0, 1:].float().reshape(cfg.pos_embed_size, cfg.pos_embed_size, -1)
-        wr = torch.from_numpy(resample_matrix(cfg.pos_embed_size, ph, "bicubic_torch"))
-        wc = torch.from_numpy(resample_matrix(cfg.pos_embed_size, pw, "bicubic_torch"))
-        grid = torch.einsum("oi,iwc->owc", wr.to(grid.device), grid)
-        grid = torch.einsum("oj,hjc->hoc", wc.to(grid.device), grid)
+        wr, wc = (resample_weights(cfg.pos_embed_size, n, "bicubic_torch", grid) for n in (ph, pw))
+        grid = torch.einsum("oi,iwc->owc", wr, grid)
+        grid = torch.einsum("oj,hjc->hoc", wc, grid)
         return torch.cat(
             [pos[:, :1].float(), grid.reshape(1, ph * pw, cfg.hidden_size)], dim=1
         ).to(pos.dtype)

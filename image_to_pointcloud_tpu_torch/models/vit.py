@@ -26,7 +26,7 @@ from torch import nn
 
 from image_to_pointcloud_tpu_torch.models.dinov2 import Block, Mlp, run_blocks, tp_width
 from image_to_pointcloud_tpu_torch.models.quantize import block_dense
-from image_to_pointcloud_tpu_torch.ops.resize import resample_matrix
+from image_to_pointcloud_tpu_torch.ops.resize import resample_weights
 
 __all__ = ["ViTBackbone", "ViTBlock", "ViTConfig"]
 
@@ -100,10 +100,9 @@ class ViTBackbone(nn.Module):
             return pos
         # Resampled in f32 whatever the model dtype, CLS slot untouched.
         grid = pos[0, 1:].float().reshape(cfg.pos_embed_size, cfg.pos_embed_size, -1)
-        wr = torch.from_numpy(resample_matrix(cfg.pos_embed_size, ph, "linear"))
-        wc = torch.from_numpy(resample_matrix(cfg.pos_embed_size, pw, "linear"))
-        grid = torch.einsum("oi,iwc->owc", wr.to(grid.device), grid)
-        grid = torch.einsum("oj,hjc->hoc", wc.to(grid.device), grid)
+        wr, wc = (resample_weights(cfg.pos_embed_size, n, "linear", grid) for n in (ph, pw))
+        grid = torch.einsum("oi,iwc->owc", wr, grid)
+        grid = torch.einsum("oj,hjc->hoc", wc, grid)
         return torch.cat(
             [pos[:, :1].float(), grid.reshape(1, ph * pw, cfg.hidden_size)], dim=1
         ).to(pos.dtype)

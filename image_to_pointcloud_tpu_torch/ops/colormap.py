@@ -13,6 +13,8 @@ import base64
 import numpy as np
 import torch
 
+from image_to_pointcloud_tpu_torch.utils.constants import device_constant
+
 __all__ = ["PLASMA_RGB", "apply_colormap"]
 
 _PLASMA_B64 = (
@@ -28,5 +30,6 @@ def apply_colormap(gray_u8: torch.Tensor, bgr: bool = False) -> torch.Tensor:
     """Map a uint8 (H, W) image through the PLASMA table → (H, W, 3)
     uint8, on the image's device; ``bgr=True`` gives OpenCV's channel
     order (what ``cv2.applyColorMap`` returns)."""
-    lut = torch.tensor(np.ascontiguousarray(PLASMA_RGB[:, ::-1] if bgr else PLASMA_RGB))
-    return lut.to(gray_u8.device)[gray_u8.long()]
+    lut = device_constant(("plasma", bgr), gray_u8.device, None,
+                          lambda: np.ascontiguousarray(PLASMA_RGB[:, ::-1] if bgr else PLASMA_RGB))
+    return lut[gray_u8.long()]

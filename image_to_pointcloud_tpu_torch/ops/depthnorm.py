@@ -21,7 +21,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from image_to_pointcloud_tpu_torch.utils.constants import device_constant
 
 __all__ = ["normalize_depth", "order_statistics"]
 
@@ -40,7 +43,9 @@ def order_statistics(x: torch.Tensor, ks) -> torch.Tensor:
     and +0.0 keep their sign (a ``torch.sort`` of the floats would tie
     them)."""
     keys = _ordered_key(x.float().reshape(-1).view(torch.int32))
-    ranks = torch.as_tensor(ks, dtype=torch.long, device=keys.device)
+    idx = np.asarray(ks, np.int64)
+    ranks = device_constant(("ranks", idx.shape, *idx.ravel().tolist()), keys.device, None,
+                            lambda: idx)
     return _ordered_key(torch.sort(keys).values[ranks]).view(torch.float32)
 
 
@@ -50,7 +55,8 @@ def normalize_depth(depth: torch.Tensor, invert: bool = True) -> torch.Tensor:
     d = depth.float()
     flat = d.reshape(-1)
     n = flat.shape[0]
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=d.device)  # noqa: E731
+    # Constants as f32 device scalars, made by a fill (no host copy).
+    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=d.device)  # noqa: E731
 
     # Median of the finite values (nanmedian): non-finites sort to +inf
     # and the median ranks follow the finite count, all on the device.
@@ -66,7 +72,8 @@ def normalize_depth(depth: torch.Tensor, invert: bool = True) -> torch.Tensor:
     pos2 = 2.0 / 100.0 * (n - 1)
     pos98 = 98.0 / 100.0 * (n - 1)
     srt = torch.sort(flat).values
-    os4 = srt[[math.floor(pos2), math.ceil(pos2), math.floor(pos98), math.ceil(pos98)]]
+    os4 = torch.stack([srt[i] for i in (math.floor(pos2), math.ceil(pos2),
+                                        math.floor(pos98), math.ceil(pos98))])
     frac2 = f32(pos2 - math.floor(pos2))
     frac98 = f32(pos98 - math.floor(pos98))
     one = f32(1.0)

@@ -31,6 +31,8 @@ import functools
 import numpy as np
 import torch
 
+from image_to_pointcloud_tpu_torch.utils.constants import device_constant
+
 __all__ = [
     "JpegSpec",
     "decode_jpeg_to_rgb",
@@ -105,7 +107,7 @@ def host_truncate_coeffs(coeffs_natural: np.ndarray, k: int) -> np.ndarray:
 def _idct_plane(coeffs_kk: torch.Tensor, qtable_kk: torch.Tensor, k: int) -> torch.Tensor:
     """(..., BH, BW, k, k) quantized coefficients and (..., k, k) tables →
     (..., BH·k, BW·k) plane, level-shifted to [0, 255]-ish (unclipped)."""
-    m = torch.from_numpy(idct_matrix(k)).to(coeffs_kk.device)
+    m = device_constant(("idct", k), coeffs_kk.device, None, lambda: idct_matrix(k))
     deq = coeffs_kk.float() * qtable_kk.float()[..., None, None, :, :]
     # out[x, y] = Σ_{u,v} M[u,x]·deq[u,v]·M[v,y], batched over blocks,
     # as two products whose right operand is the 2-D M, so that each is
@@ -136,7 +138,7 @@ def _fancy_upsample_axis(p: torch.Tensor, axis: int) -> torch.Tensor:
     """libjpeg "fancy" 2× upsampling of a (..., H, W) plane along its row
     (``axis=0``) or column (``axis=1``) axis, as one constant matmul."""
     n = p.shape[-2 + axis]
-    m = torch.from_numpy(_fancy_upsample_matrix(n)).to(p.device)
+    m = device_constant(("fancy_upsample", n), p.device, None, lambda: _fancy_upsample_matrix(n))
     if axis == 0:
         return torch.matmul(p.transpose(-1, -2), m).transpose(-1, -2)
     return torch.matmul(p, m)

@@ -17,8 +17,11 @@ import math
 import numpy as np
 import torch
 
+from image_to_pointcloud_tpu_torch.utils.constants import device_constant
+
 __all__ = [
     "resample_matrix",
+    "resample_weights",
     "resize2d",
     "resize_area",
     "resize_batched",
@@ -149,9 +152,11 @@ def resample_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
     return _FILTERS[method](in_size, out_size)
 
 
-def _weights(in_size, out_size, method, like: torch.Tensor) -> torch.Tensor:
-    w = resample_matrix(in_size, out_size, method)
-    return torch.from_numpy(w).to(device=like.device, dtype=like.dtype)
+def resample_weights(in_size: int, out_size: int, method: str, like: torch.Tensor) -> torch.Tensor:
+    """:func:`resample_matrix` as a tensor of ``like``'s device and dtype,
+    made once (a device constant: a CUDA graph may read it)."""
+    return device_constant(("resample", in_size, out_size, method), like.device, like.dtype,
+                           lambda: resample_matrix(in_size, out_size, method))
 
 
 def resize_planes(
@@ -166,8 +171,8 @@ def resize_planes(
         x = x.float()
     if tuple(x.shape[-2:]) == tuple(out_hw):
         return x
-    wr = _weights(x.shape[-2], out_hw[0], method, x)
-    wc = _weights(x.shape[-1], out_hw[1], method, x)
+    wr = resample_weights(x.shape[-2], out_hw[0], method, x)
+    wc = resample_weights(x.shape[-1], out_hw[1], method, x)
     return torch.matmul(torch.matmul(wr, x), wc.T)
 
 

@@ -56,6 +56,14 @@ def num_points(h: int, w: int, step: int) -> int:
     return -(-h // step) * -(-w // step)
 
 
+def _f32_on(v: "torch.Tensor | float", device: torch.device) -> torch.Tensor:
+    """``v`` as f32 on ``device``: a Python number by a fill (no host
+    copy, so a CUDA graph may capture it), anything else converted."""
+    if isinstance(v, (int, float)):
+        return torch.full((), v, dtype=torch.float32, device=device)
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
 def unproject_intrinsics(
     depth_metric: torch.Tensor,
     image_rgb: torch.Tensor,
@@ -79,7 +87,7 @@ def unproject_intrinsics(
     n = hh * ww
 
     def per_image(v):
-        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        v = _f32_on(v, dev)
         return v.reshape(*v.shape, 1, 1)
 
     fx, fy, cx, cy = (per_image(v) for v in (fx, fy, cx, cy))
@@ -136,7 +144,7 @@ def unproject_plain(
     # A device tensor, not a Python number, so that no backend turns the
     # division into a multiplication by the reciprocal.
     f = torch.full((), focal_length(h, w, fov_deg), dtype=torch.float32, device=dev)
-    scale = torch.as_tensor(depth_scale, dtype=torch.float32, device=dev)
+    scale = _f32_on(depth_scale, dev)
     scale = scale.reshape(*scale.shape, 1, 1)
 
     u = torch.arange(ww, dtype=torch.float32, device=dev) * step - cx
@@ -192,8 +200,7 @@ def unproject_cuda(
             f"do not match (B, {h}, {w}) and (B, {h}, {w}, 3)"
         )
     bsz = d.shape[0]
-    scale = torch.as_tensor(depth_scale, dtype=torch.float32, device=d.device)
-    scale = scale.expand(bsz).contiguous()
+    scale = _f32_on(depth_scale, d.device).expand(bsz).contiguous()
     hh, ww = -(-h // step), -(-w // step)
     out = torch.empty((bsz, 8, hh * ww), dtype=torch.float32, device=d.device)
     lib = cuda.library()

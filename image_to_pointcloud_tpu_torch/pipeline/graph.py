@@ -21,10 +21,19 @@ default on any device but the CPU (:func:`default_quantized_transfer`);
 the host then reconstructs the points (``pipeline/transfer.py``, the
 native reconstruct).
 
-The JAX package compiles one graph per shape signature; PyTorch runs
-eagerly, so there is no compile cache. :meth:`DepthPipeline.submit_batch`
-enqueues the work (asynchronous on CUDA) and :meth:`DepthPipeline.collect`
-brings the result to the host and splits it per image.
+As the JAX package compiles one XLA program per signature (batch, input
+size or ``JpegSpec``, options, preview, sparse capacities, bundle layout),
+the port captures one CUDA graph per signature
+(:meth:`DepthPipeline.compiled_graph`, :meth:`DepthPipeline.compiled_graph_jpeg`)
+and replays it as one launch: the payload (:meth:`DepthPipeline.pack_payload`,
+or the JPEG packers) is the graph's one input, unpacked on the device by
+the graph's first operations. The first call of a signature captures it
+(one eager pass, then the capture: see :class:`_CompiledGraph`); the
+server's warmup captures every batch bucket of its warmup sizes ahead of
+traffic. On the CPU and on a mesh the same callable runs eagerly.
+:meth:`DepthPipeline.submit_batch` enqueues the work (asynchronous on
+CUDA) and :meth:`DepthPipeline.collect` brings the result to the host and
+splits it per image.
 
 The dummy models' graphs (:func:`dummy_point_cloud_graph`,
 :func:`demo_depth_map_graph`) are plain torch ops on the service's device.
@@ -44,7 +53,8 @@ leave restores them, and concurrent f32 forwards (the server's executor
 threads) never see them restored early. While any f32 forward runs, other
 threads' f32 work runs without TF32 too; bf16 work is unaffected. The
 flags are read when an operation is enqueued, so the scope covers the
-host's enqueue of the forward, which is all that decides the kernels.
+host's enqueue of the forward, which is all that decides the kernels: a
+CUDA graph is captured inside it, and its replays need no flags.
 """
 
 from __future__ import annotations
@@ -52,14 +62,17 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import os
 import threading
+import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from image_to_pointcloud_tpu_torch import cuda
 from image_to_pointcloud_tpu_torch.ops.colormap import PLASMA_RGB, apply_colormap
 from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth
 from image_to_pointcloud_tpu_torch.ops.gaussian import gaussian_blur
@@ -206,8 +219,23 @@ def _normalize_each(depth: torch.Tensor, invert: bool) -> torch.Tensor:
 
 def _view(payload: torch.Tensor, off: int, size: int, dtype: torch.dtype) -> torch.Tensor:
     """Bytes [off, off+size) of every payload row, reinterpreted as
-    ``dtype`` (little-endian, as the host packed them)."""
-    return payload[:, off : off + size].contiguous().view(dtype)
+    ``dtype`` (little-endian, as the host packed them); copied first when
+    the bytes are not contiguous or not aligned to ``dtype``."""
+    x = payload[:, off : off + size]
+    if not x.is_contiguous() or x.storage_offset() % dtype.itemsize:
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x.view(dtype)
+
+
+def _unpack_pixel_batch(
+    payload_u8: torch.Tensor, in_hw: tuple[int, int]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pixel payload rows (:meth:`DepthPipeline.pack_payload`: [H·W·3 u8
+    RGB | f32 depth scale]) → ((B, H, W, 3) f32 pixels, (B,) f32 scales)."""
+    h0, w0 = in_hw
+    n = h0 * w0 * 3
+    return (payload_u8[:, :n].reshape(-1, h0, w0, 3).float(),
+            _view(payload_u8, n, 4, torch.float32).reshape(-1))
 
 
 # ---------- hybrid JPEG ingest ----------
@@ -487,6 +515,113 @@ def exact_f32(on: bool = True):
                  torch.backends.cudnn.allow_tf32) = _tf32_saved
 
 
+# One capture at a time in the process (torch's rule for CUDA graphs), each
+# on its device's one capture stream, where its warm-up pass ran too: the
+# stream's cuBLAS workspace is made once, outside any capture.
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS: dict = {}
+
+
+class _CompiledGraph:
+    """``fn(payload_u8) -> (out, preview)`` of one signature, the port's
+    counterpart of the JAX package's jitted graph; ``payload_u8`` is the
+    (batch, nbytes) u8 host payload, and ``run`` the signature's eager
+    body (payload tensor → unpack → :meth:`DepthPipeline._forward` on each
+    data slot, under :func:`exact_f32` as every forward).
+
+    On the CPU and on a mesh a call runs ``run`` eagerly. On CUDA the first
+    call captures ``run`` into a CUDA graph, under the pipeline's build
+    lock: one eager pass first, on the capture stream (it makes the device
+    constants and settles cuBLAS and cuDNN; its result is dropped and,
+    like an XLA compile, it counts no launch), then the capture on the
+    same stream, into the memory pool that the pipeline's graphs share. A
+    capture that fails raises, naming the signature; nothing falls back to
+    eager. Each call (the first too) copies the payload from pinned memory
+    into the graph's static input, replays the graph and returns fresh
+    copies of its static outputs: two drains may be in flight before
+    either is collected, and the JAX package's executables return new
+    buffers on every call. The copy in, the replay and the copy out hold
+    the pipeline's replay lock, and a replay waits for the pipeline's
+    previous one on the card: the graphs share one pool, so no two of
+    their replays may overlap. Each replay counts the hand kernels'
+    launches it replays (``cuda.replayed``)."""
+
+    def __init__(self, pipeline: "DepthPipeline", key: tuple, run):
+        self.pipeline, self.key, self.run = pipeline, key, run
+        self.graph: "torch.cuda.CUDAGraph | None" = None
+        self.static_in: torch.Tensor | None = None
+        self.static_out: tuple = ()
+        self.launches: dict = {}  # cuda.Kernel → launches a replay
+        self.capture_s: float | None = None  # wall seconds of the warm-up and capture
+
+    def __call__(self, payload_u8: np.ndarray) -> tuple[torch.Tensor, torch.Tensor | None]:
+        payload = torch.from_numpy(np.ascontiguousarray(payload_u8))
+        pipe = self.pipeline
+        if not pipe.cuda_graphs:
+            return self.run(payload)
+        staged = payload.pin_memory()
+        if self.graph is None:
+            with pipe._build_lock:
+                if self.graph is None:
+                    self._capture(staged)
+        if staged.shape != self.static_in.shape:
+            raise ValueError(f"payload {tuple(staged.shape)} does not match the signature "
+                             f"{self.key}'s {tuple(self.static_in.shape)}")
+        return self._replay(staged)
+
+    def _capture(self, staged: torch.Tensor) -> None:
+        pipe = self.pipeline
+        dev = pipe.device
+        t0 = time.perf_counter()
+        with _CAPTURE_LOCK:
+            stream = _CAPTURE_STREAMS.get(dev)
+            if stream is None:
+                stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+            if pipe._graph_pool is None:
+                pipe._graph_pool = torch.cuda.graph_pool_handle()
+            static_in = torch.empty(tuple(staged.shape), dtype=torch.uint8, device=dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream), cuda.recording_launches():
+                static_in.copy_(staged, non_blocking=True)
+                self.run(static_in)  # the warm-up pass
+            graph = torch.cuda.CUDAGraph()
+            # A graph that the cyclic collector destroyed during the capture
+            # (pipelines and their graphs hold each other) would free its
+            # memory on this thread, which the capture refuses: collect
+            # first, and not during the capture.
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with cuda.recording_launches() as launches, torch.cuda.graph(
+                    graph, pool=pipe._graph_pool, stream=stream,
+                    capture_error_mode="thread_local",
+                ):
+                    static_out = self.run(static_in)
+            except RuntimeError as e:
+                raise RuntimeError(f"CUDA graph capture of signature {self.key} failed: {e}") from e
+            finally:
+                if collecting:
+                    gc.enable()
+        self.static_in, self.static_out, self.launches = static_in, static_out, launches
+        self.capture_s = time.perf_counter() - t0
+        self.graph = graph  # last: a caller that sees the graph sees the rest
+
+    def _replay(self, staged: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        pipe = self.pipeline
+        stream = torch.cuda.current_stream(pipe.device)
+        with pipe._replay_lock:
+            if pipe._replay_done is None:
+                pipe._replay_done = torch.cuda.Event()
+            stream.wait_event(pipe._replay_done)
+            self.static_in.copy_(staged, non_blocking=True)
+            self.graph.replay()
+            out, prev = (None if t is None else t.clone() for t in self.static_out)
+            pipe._replay_done.record(stream)
+        cuda.replayed(self.launches)
+        return out, prev
+
+
 class DepthPipeline:
     """The depth→point-cloud pipeline over one model of any family on one
     device (the model's own device and dtype: bf16 on CUDA for serving,
@@ -553,6 +688,16 @@ class DepthPipeline:
             else (12 if os.environ.get("IPC_TPU_DEPTH12") == "1" else 8)
         )
         self.host_colors_enabled = os.environ.get("IPC_TPU_HOST_COLORS", "1") != "0"
+        # One callable per signature (:meth:`_get`); on CUDA without a mesh
+        # each is a CUDA graph, captured on first use.
+        self.cuda_graphs = self.device.type == "cuda" and mesh is None
+        self._compiled: dict[tuple, _CompiledGraph] = {}
+        self._build_lock = threading.Lock()
+        # Per-JpegSpec floor of the sparse capacities (select_sparse_caps).
+        self._sparse_caps: dict = {}
+        self._graph_pool = None  # the memory pool the graphs share
+        self._replay_lock = threading.Lock()
+        self._replay_done: "torch.cuda.Event | None" = None
 
     @staticmethod
     def _place(model: nn.Module, mesh, pipe_microbatches: int) -> tuple:
@@ -586,9 +731,9 @@ class DepthPipeline:
         lone request on a data=2 mesh must still split)."""
         return (-b) % len(self._slots)
 
-    def _run_slots(self, rows, in_hw, options, want_preview, b, **kw):
+    def _run_slots(self, rows, in_hw, options, want_preview, **kw):
         """``rows(d, device) -> (img, scales)`` of each data slot → the
-        batch's (out, preview) on the first slot, cut back to ``b`` rows."""
+        batch's (out, preview) on the first slot, eagerly."""
         with exact_f32(self.exact_f32):
             outs = [
                 self._forward(*rows(d, dev), in_hw, options, want_preview, model=fwd, **kw)
@@ -596,9 +741,8 @@ class DepthPipeline:
             ]
         if len(outs) == 1:
             return outs[0]
-        out = torch.cat([o.to(self.device) for o, _ in outs])[:b]
-        prev = None if outs[0][1] is None else torch.cat(
-            [p.to(self.device) for _, p in outs])[:b]
+        out = torch.cat([o.to(self.device) for o, _ in outs])
+        prev = None if outs[0][1] is None else torch.cat([p.to(self.device) for _, p in outs])
         return out, prev
 
     def _depth_codec_bits(self, hh: int, ww: int) -> int:
@@ -726,13 +870,142 @@ class DepthPipeline:
             parts.append(pix.to(torch.uint8).reshape(bq, -1))
         return torch.cat(parts, dim=1)
 
-    def _handle(self, out, prev, in_hw, options, depth_scales, imgs=None, host_rgb=None):
+    def _handle(self, out, prev, in_hw, options, depth_scales, b, imgs=None, host_rgb=None):
+        """The handle of a submitted batch, its outputs cut back to the
+        ``b`` real rows (a mesh pads a batch to its data slots)."""
+        if out.shape[0] != b:
+            out, prev = out[:b], None if prev is None else prev[:b]
         h, w = _proc_hw(*in_hw)
         step = DENSITY_STRIDES[options.density]
         return _Handle(
             out, prev, self.quantized_transfer, (-(-h // step), -(-w // step)), (h, w),
             step, options.fov, depth_scales, imgs, host_rgb,
         )
+
+    # ---------- the signature cache ----------
+
+    def _build(
+        self,
+        key: tuple,
+        in_hw: tuple[int, int],
+        opts: PipelineOptions,
+        batch: int,
+        preview: bool = True,
+        jpeg_spec: "JpegSpec | None" = None,
+        jpeg_sparse_cap: "tuple[int, int] | None" = None,
+        jpeg_host_colors: bool = False,
+    ) -> _CompiledGraph:
+        """The callable of one signature: a (``batch``, nbytes) u8 payload
+        → (out, preview). ``jpeg_spec`` switches its head to the hybrid
+        JPEG ingest (coefficients in the payload, sparse when
+        ``jpeg_sparse_cap`` gives the capacities; ``in_hw`` stays the
+        original image size), ``jpeg_host_colors`` drops the colour
+        ride-along from the bundle (the host rebuilds the colours)."""
+        if jpeg_spec is not None and jpeg_sparse_cap is not None:
+            unpack = functools.partial(_unpack_jpeg_sparse_batch, spec=jpeg_spec,
+                                       cap=jpeg_sparse_cap[0], exc_cap=jpeg_sparse_cap[1])
+        elif jpeg_spec is not None:
+            unpack = functools.partial(_unpack_jpeg_batch, spec=jpeg_spec)
+        else:
+            unpack = functools.partial(_unpack_pixel_batch, in_hw=in_hw)
+        kw = {} if jpeg_spec is None else {"jpeg": True, "host_colors": jpeg_host_colors}
+        per = batch // len(self._slots)
+
+        @torch.inference_mode()
+        def run(payload_u8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+            def rows(d, dev):
+                return unpack(payload_u8[d * per : (d + 1) * per].to(dev))
+
+            return self._run_slots(rows, in_hw, opts, preview, **kw)
+
+        return _CompiledGraph(self, key, run)
+
+    def _get(self, key: tuple, builder) -> _CompiledGraph:
+        fn = self._compiled.get(key)
+        if fn is None:
+            # Concurrent submitters (two drains in flight) share one
+            # callable, so one capture, per signature.
+            with self._build_lock:
+                fn = self._compiled.get(key)
+                if fn is None:
+                    fn = builder()
+                    self._compiled[key] = fn
+        return fn
+
+    @staticmethod
+    def pack_payload(imgs: np.ndarray, depth_scales: np.ndarray) -> np.ndarray:
+        """Fuse (B, H, W, 3) u8 images + (B,) f32 scales into the one
+        (B, H·W·3+4) u8 host→device buffer of the pixel ingest's graph:
+        [pixels | f32 scale as 4 little-endian bytes] per row."""
+        return np.concatenate(
+            [
+                imgs.reshape(len(imgs), -1),
+                np.ascontiguousarray(depth_scales, np.float32).view(np.uint8).reshape(len(imgs), 4),
+            ],
+            axis=1,
+        )
+
+    def compiled_graph(
+        self,
+        batch: int,
+        in_hw: tuple[int, int],
+        options: PipelineOptions,
+        want_preview: bool,
+    ) -> _CompiledGraph:
+        """The callable of one pixel-ingest signature (made on first ask,
+        captured on first call): ``fn(payload_u8) -> (out, preview)``, the
+        payload from :meth:`pack_payload`. Public so that benches and
+        checks run the exact serving graph under its cache key."""
+        key = ("depth", batch, in_hw[0], in_hw[1], options, want_preview)
+        return self._get(key, lambda: self._build(key, in_hw, options, batch, preview=want_preview))
+
+    def compiled_graph_jpeg(
+        self,
+        batch: int,
+        spec: JpegSpec,
+        options: PipelineOptions,
+        want_preview: bool,
+        sparse_cap: "tuple[int, int] | None" = None,
+        host_colors: bool = False,
+    ) -> _CompiledGraph:
+        """Hybrid-ingest variant of :meth:`compiled_graph`: the JpegSpec is
+        the shape part of the signature, with the (AC, exception) capacity
+        buckets of a sparse payload (:meth:`select_sparse_caps`) and the
+        host-colours bundle layout."""
+        key = ("depth-jpeg", batch, spec, options, want_preview, sparse_cap, host_colors)
+        return self._get(key, lambda: self._build(
+            key, (spec.height, spec.width), options, batch, preview=want_preview,
+            jpeg_spec=spec, jpeg_sparse_cap=sparse_cap, jpeg_host_colors=host_colors,
+        ))
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes reserved by the memory pool the pipeline's CUDA
+        graphs share (0 before the first capture)."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def select_sparse_caps(self, jpegs: "list[JpegInput]") -> "tuple[int, int] | None":
+        """(AC, exception) capacity buckets for one hybrid batch with the
+        per-spec floor applied and ratcheted up, or None when the dense
+        payload wins. Caps are part of a signature: without the floor
+        almost every JPEG batch would capture a graph of its own. The
+        floor's read-modify-write holds the build lock, so two concurrent
+        submits for one spec never pick different caps from a stale floor."""
+        caps = plan_sparse_batch(jpegs)
+        if caps is None:
+            return None
+        spec = jpegs[0].spec
+        with self._build_lock:
+            floor = self._sparse_caps.get(spec)
+            if floor is not None:
+                caps = (max(caps[0], floor[0]), max(caps[1], floor[1]))
+            self._sparse_caps[spec] = caps
+        return caps
+
+    # ---------- host-facing API ----------
 
     def submit_batch(
         self,
@@ -742,23 +1015,18 @@ class DepthPipeline:
         options: PipelineOptions = PipelineOptions(),
         want_preview: bool = True,
     ) -> _Handle:
-        """Enqueue one batch of same-size images; returns a handle for
-        :meth:`collect`. On CUDA the work runs asynchronously."""
+        """Enqueue one batch of same-size images through its signature's
+        graph; returns a handle for :meth:`collect`. On CUDA the work runs
+        asynchronously."""
         imgs = np.stack(images_rgb_u8)
         b, h0, w0 = imgs.shape[:3]
         scales = np.broadcast_to(np.asarray(depth_scales, np.float32), (b,)).copy()
         pad = self._data_pad(b)
         run_imgs = np.concatenate([imgs, imgs[-1:].repeat(pad, 0)]) if pad else imgs
         run_scales = np.concatenate([scales, scales[-1:].repeat(pad)]) if pad else scales
-        per = (b + pad) // len(self._slots)
-
-        def rows(d, dev):
-            sl = slice(d * per, (d + 1) * per)
-            return (torch.from_numpy(run_imgs[sl]).to(dev).float(),
-                    torch.from_numpy(run_scales[sl]).to(dev))
-
-        out, prev = self._run_slots(rows, (h0, w0), options, want_preview, b)
-        return self._handle(out, prev, (h0, w0), options, scales, imgs=imgs)
+        fn = self.compiled_graph(b + pad, (h0, w0), options, want_preview)
+        out, prev = fn(self.pack_payload(run_imgs, run_scales))
+        return self._handle(out, prev, (h0, w0), options, scales, b, imgs=imgs)
 
     @staticmethod
     def pack_jpeg_payload(jpegs: "list[JpegInput]", depth_scales: np.ndarray) -> np.ndarray:
@@ -828,10 +1096,8 @@ class DepthPipeline:
     ) -> _Handle:
         """Hybrid-ingest :meth:`submit_batch`: every item must share one
         JpegSpec (serving buckets by spec as pixel items bucket by shape).
-        The payload is the sparse one whenever :func:`plan_sparse_batch`
-        finds it smaller than the dense one, with capacities chosen for
-        this batch alone: the JAX package ratchets them per spec only to
-        bound its recompiles, and eager PyTorch compiles nothing."""
+        The payload is the sparse one whenever :meth:`select_sparse_caps`
+        finds it smaller than the dense one."""
         b = len(jpegs)
         if b == 0:
             raise ValueError("empty batch")
@@ -851,24 +1117,16 @@ class DepthPipeline:
         pad = self._data_pad(b)
         run = jpegs + [jpegs[-1]] * pad
         run_scales = np.concatenate([scales, scales[-1:].repeat(pad)]) if pad else scales
-        caps = plan_sparse_batch(run)
+        caps = self.select_sparse_caps(run)
+        fn = self.compiled_graph_jpeg(b + pad, spec, options, want_preview, sparse_cap=caps,
+                                      host_colors=host_rgb is not None)
         if caps is not None:
             payload = self.pack_jpeg_sparse_payload(run, run_scales, *caps)
         else:
             payload = self.pack_jpeg_payload(run, run_scales)
-        per = (b + pad) // len(self._slots)
-
-        @torch.inference_mode()
-        def rows(d, dev):
-            dev_payload = torch.from_numpy(payload[d * per : (d + 1) * per]).to(dev)
-            if caps is not None:
-                return _unpack_jpeg_sparse_batch(dev_payload, spec, *caps)
-            return _unpack_jpeg_batch(dev_payload, spec)
-
-        in_hw = (spec.height, spec.width)
-        out, prev = self._run_slots(rows, in_hw, options, want_preview, b, jpeg=True,
-                                    host_colors=host_rgb is not None)
-        return self._handle(out, prev, in_hw, options, scales, host_rgb=host_rgb)
+        out, prev = fn(payload)
+        return self._handle(out, prev, (spec.height, spec.width), options, scales, b,
+                            host_rgb=host_rgb)
 
     def collect(
         self,

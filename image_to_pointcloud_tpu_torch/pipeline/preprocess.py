@@ -19,6 +19,7 @@ from image_to_pointcloud_tpu_torch.models.depth_anything import (
     IMAGENET_STD,
 )
 from image_to_pointcloud_tpu_torch.ops.resize import resize_batched
+from image_to_pointcloud_tpu_torch.utils.constants import device_constant
 
 __all__ = [
     "model_preprocess_spec",
@@ -96,6 +97,6 @@ def preprocess_for_model(
     """(B, H, W, 3) uint8/float RGB → (B, mh, mw, 3) normalized f32 input."""
     x = resize_batched(images_rgb.float(), out_hw, method)
     x = x * (1.0 / 255.0)
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.tensor(std, dtype=torch.float32, device=x.device)
+    m = device_constant(("pixel_mean", tuple(mean)), x.device, torch.float32, lambda: mean)
+    s = device_constant(("pixel_std", tuple(std)), x.device, torch.float32, lambda: std)
     return (x - m) / s

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from image_to_pointcloud_tpu_torch.utils.constants import device_constant
+
 __all__ = [
     "depth16_to_xyz",
     "depth8t_section_len",
@@ -177,7 +179,8 @@ def pack_keep_bits(mask: torch.Tensor) -> torch.Tensor:
     n = mask.shape[-1]
     kb = torch.nn.functional.pad(mask.to(torch.int32), (0, (-n) % 8))
     kb = kb.reshape(*mask.shape[:-1], -1, 8)
-    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32, device=mask.device)
+    weights = device_constant(("keep_bit_weights",), mask.device, torch.int32,
+                              lambda: [1, 2, 4, 8, 16, 32, 64, 128])
     return _u8((kb * weights).sum(dim=-1))
 
 

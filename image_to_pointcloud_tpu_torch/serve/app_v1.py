@@ -71,7 +71,7 @@ from image_to_pointcloud_tpu_torch.pipeline.graph import (
     dummy_point_cloud_graph,
     plan_jpeg_input,
 )
-from image_to_pointcloud_tpu_torch.serve.batching import BatchingQueue
+from image_to_pointcloud_tpu_torch.serve.batching import BatchingQueue, bucket_sizes
 from image_to_pointcloud_tpu_torch.serve.models import DUMMY_MODELS, ModelManager
 
 __all__ = ["V1Service", "create_v1_app"]
@@ -216,28 +216,36 @@ class V1Service:
         self.executor.shutdown(wait=False, cancel_futures=True)
 
     def warmup(self, model_name: str = "depth-anything-v2") -> None:
-        """Build the model and run each warmup size once, so the first
-        request does not pay the kernel build and library autotuning;
-        with ``jpeg_device_decode``, once more through the hybrid ingest.
+        """Build the model and capture the pipeline's graph of every batch
+        bucket (``serve.batching.bucket_sizes``, the only sizes the
+        batcher dispatches) at each warmup size, so that no request pays
+        a capture, the kernel build or library autotuning; with
+        ``jpeg_device_decode``, for the hybrid ingest too, from a
+        synthesized photographic JPEG (the spec and capacities that
+        ordinary uploads of the size get). A capture that fails raises.
         Blocking; call from a startup thread."""
         pipeline = self.models.get(model_name)
         self.loaded_model_names.add(model_name)
+        buckets = bucket_sizes(self.max_batch)
         for h, w in self.warmup_sizes:
-            logger.info("Warmup %dx%d", h, w)
-            pipeline.run(np.zeros((h, w, 3), np.uint8))
-            if not self.jpeg_device_decode:
-                continue
-            plan = plan_jpeg_input(_warmup_jpeg(h, w))
-            if plan is None:
-                # A decline (no native library, or the sparse gate), not
-                # an error: say so, or the hybrid path stays cold silently.
-                logger.warning(
-                    "Warmup JPEG %dx%d: plan_jpeg_input declined; the hybrid "
-                    "ingest is not warmed for this size", h, w,
-                )
-                continue
-            pipeline.collect(pipeline.submit_batch_jpeg([plan]))
-        logger.info("Warmup complete (%d sizes)", len(self.warmup_sizes))
+            plan = None
+            if self.jpeg_device_decode:
+                plan = plan_jpeg_input(_warmup_jpeg(h, w))
+                if plan is None:
+                    # A decline (no native library, or the sparse gate), not
+                    # an error: say so, or the hybrid path stays cold silently.
+                    logger.warning(
+                        "Warmup JPEG %dx%d: plan_jpeg_input declined; the hybrid "
+                        "ingest is not warmed for this size", h, w,
+                    )
+            for b in buckets:
+                logger.info("Warmup %dx%d batch=%d (pixel)", h, w, b)
+                pipeline.run_batch(np.zeros((b, h, w, 3), np.uint8), options=PipelineOptions())
+                if plan is not None:
+                    logger.info("Warmup %dx%d batch=%d (jpeg)", h, w, b)
+                    pipeline.collect(pipeline.submit_batch_jpeg([plan] * b,
+                                                                options=PipelineOptions()))
+        logger.info("Warmup complete (%d sizes, buckets %s)", len(self.warmup_sizes), buckets)
 
     # ---------- pipeline task ----------
 

@@ -6,9 +6,11 @@ jobs with the same signature (the image size for decoded pixels, the
 batched pipeline call; a short window (a few ms) bounds the added
 latency, and an arrival-gap debounce dispatches a complete burst at
 once. Up to two drains run concurrently, so the host collect of one
-batch overlaps the device work of the next. The JAX package pads each
-batch to a fixed set of sizes because every size is a compile; PyTorch
-runs eagerly, so a batch is exactly the requests it holds.
+batch overlaps the device work of the next. Each group is padded to the
+next of a fixed set of batch sizes (:func:`bucket_sizes`) with copies of
+its last item, whose results are dropped: every batch size is a
+signature of its own, a CUDA graph captured once (an XLA compile in the
+JAX package), and the server's warmup captures every bucket.
 """
 
 from __future__ import annotations
@@ -28,9 +30,25 @@ from image_to_pointcloud_tpu_torch.pipeline.graph import (
     PipelineResult,
 )
 
-__all__ = ["BatchingQueue"]
+__all__ = ["BatchingQueue", "bucket_sizes"]
 
 _DRAIN_DEPTH = 2
+
+
+def bucket_sizes(max_batch: int) -> list[int]:
+    """The batch sizes a drain dispatches: powers of two plus 3·2^k mid
+    steps from 12 (12, 24, …), capped at ``max_batch``, which is one too.
+    The mids exist because N lockstep clients land between powers of two
+    (12 clients would pad to 16, a third of the work thrown away). Each
+    bucket is one signature; the warmup captures them all."""
+    sizes = {1, max_batch}
+    b = 2
+    while b <= max_batch:
+        sizes.add(b)
+        if 3 * b // 2 <= max_batch and b >= 8:
+            sizes.add(3 * b // 2)
+        b *= 2
+    return sorted(sizes)
 
 
 @dataclasses.dataclass
@@ -149,8 +167,14 @@ class BatchingQueue:
                 groups[(item.signature, item.options)].append(item)
             for (_, options), items in groups.items():
                 metrics.BATCH_SIZE.observe(len(items))
+                # Padded to the next bucket with copies of the last item;
+                # zip below drops the padding's results.
+                n = len(items)
+                bucket = next(b for b in bucket_sizes(self.max_batch) if b >= n)
                 images = [i.image for i in items]
                 scales = [i.depth_scale for i in items]
+                images += [images[-1]] * (bucket - n)
+                scales += [scales[-1]] * (bucket - n)
                 want_packed = any(i.want_packed for i in items)
                 submit = (
                     self.pipeline.submit_batch

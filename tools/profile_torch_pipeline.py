@@ -9,7 +9,8 @@ Depth-Anything-V2-Small; ``--int8``: its int8 W8A8 encoder) in bf16
 device decode, with the quantized bundle (the card's default) or the f32
 return: the host wall time of submit+collect (what a request waits for),
 then one ``torch.profiler`` window over ``--iters`` runs for device time
-by kernel and the device's busy share. Needs CUDA; imports no JAX.
+by kernel and the device's busy share. Each run replays the signature's
+CUDA graph, captured in the first warm-up run. Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
