@@ -123,7 +123,9 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     ``depth-anything-v2-metric-small`` and ``zoedepth-small``, ``video``
     on four 518² frames with and without ``--voxel``, ``convert`` to
     ply, las, xyz, pcd and glb and once with ``--int8``; each run held to
-    its exact K1/K2/K3 launches, each output file read back.
+    its exact K1/K2/K3 launches, each output file read back; each advanced
+    run's wall logged beside its wall when the advanced pipelines ran
+    eagerly (a run now pays one capture a signature).
 15. batch-1 ``submit_batch`` + ``collect`` medians, in turns: PNG with
     the f32 return, PNG with the quantized bundle, JPEG with the bundle;
     then DA-V2 (PNG, JPEG, int8, f32), ``dpt-large`` and ``zoedepth`` at
@@ -183,6 +185,31 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 21. ``/profile/start`` and ``/profile/stop`` around one ``dpt-large``
     request: the Chrome trace must exist and name the CUDA kernels. Last,
     so that no profiler session precedes the timings of phase 15.
+22. (after 20, before 21) one CUDA graph per signature of the advanced
+    pipelines and the v2 matte (``_fn``, the JAX cache keys), at full
+    width, random init, bf16 (the matte f32), each on a fresh pipeline:
+    ``MetricPipeline`` with ``depth-anything-v2-metric-small`` and
+    ``zoedepth`` on 518² frames at batch 1 and 4, both transfers;
+    ``HighResPipeline`` with DA-V2-Small on a 1024² frame (tile 518,
+    overlap 128: the anchor and 9 tiles), the depth grid and the device
+    path; ``VideoPipeline`` with DA-V2-Small on 30 518² frames at step 2,
+    quantized and unfused; ``MatteModel`` (SegFormer-B0, 512²). Each
+    replay against its eager body byte for byte, at the captured and at a
+    second depth scale, intrinsics or image (the output must move where
+    the value enters the device program); the launches of a replay, the
+    eager body's and exactly K1 12 (DA), 0 (``zoedepth``, the matte), 24
+    (high-res), K3 1 on the high-res device path and the unfused video, K2
+    never; capture seconds and pool MiB; the wall a call, graph against
+    eager in turns (6 each, median), and the device time a call (the
+    kernels' sum in a profiler window of 3). The voxel downsample's graph
+    (keyed by shapes) on the high-res cloud (budget 1 M) and the clip
+    (voxel 0.05) against the eager op: the same count and valid mask,
+    each mean within ``VOXEL_RTOL`` or, for a voxel of many points, the
+    f32 bound of its sum in another order (two eager calls logged beside);
+    the voxel quantization's graph byte for byte. Then each public entry point once, read on its own: ``run_batch``
+    (12/0/0 or 0/0/0), high-res ``run`` (24/0/0 on the depth grid, 24/0/1
+    with the device voxel), video ``run`` (12/0/0, ``fuse_voxel`` 12/0/1)
+    and the matte's ``alpha``.
 
 Each phase logs its wall time. Kernel times: ``device`` is a CUDA graph
 of 20 captured calls, replayed and timed with CUDA events (no host time
@@ -250,6 +277,13 @@ TRAIN_GRAD_TOL = 1e-2
 # The voxel op card vs CPU on one cloud: CUDA's scatter-add is atomic, so
 # each voxel's sum is taken in another order (a few f32 ulp of the mean).
 VOXEL_RTOL = 1e-5
+# Beyond it, a voxel of n points may differ by what two f32 sums of its
+# points in different orders can: 2·(n-1)·2^-24·mean|p| (each order's
+# worst case, (n-1)·2^-24·Σ|p|, over n), plus the division's rounding. On
+# a depth map whose normalized tail sits at 0, tens of thousands of points
+# share the voxel at the origin, where a mean of ~1e-3 makes VOXEL_RTOL
+# ~100 points' worth of that bound; two eager calls on the card differ
+# there by 1.4e-5 relative (an H100 80GB HBM3 at 700 W).
 
 
 def log(msg: str) -> None:
@@ -1253,6 +1287,13 @@ def _read_cloud(path) -> int:
     return n
 
 
+# Each advanced CLI run's wall when the advanced pipelines ran eagerly (this
+# script, on an NVIDIA H100 80GB HBM3 at 700 W). A run now pays one capture
+# a signature, as a run of the JAX CLI pays one compile.
+EAGER_CLI_WALL_S = {"highres": 0.84, "metric DA-V2-metric-small": 0.54,
+                    "metric zoedepth-small": 1.67, "video": 0.42, "video --voxel": 0.52}
+
+
 def phase_cli(out_dir: str) -> tuple[dict[str, int], dict[str, dict[str, float]]]:
     """The CLI's paths in this process (``cli.main``), on the card, full
     width, random init: each run read on its own (the launch counters
@@ -1295,8 +1336,9 @@ def phase_cli(out_dir: str) -> tuple[dict[str, int], dict[str, dict[str, float]]
         rc = cli.main(argv)
         got = {k.name: k.launches for k in cuda.KERNELS}
         n = _read_cloud(Path(argv[argv.index("-o") + 1]))
-        log(f"cli {name}: rc {rc}, {n} points read back, {time.perf_counter() - t0:.2f} s, "
-            f"launches {got}")
+        eager = f" (eager {EAGER_CLI_WALL_S[name]:.2f} s)" if name in EAGER_CLI_WALL_S else ""
+        log(f"cli {name}: rc {rc}, {n} points read back, {time.perf_counter() - t0:.2f} s"
+            f"{eager}, launches {got}")
         if rc != 0 or got != {"flash_attention": k1, "grid_knn": k2, "unproject": k3}:
             raise AssertionError(f"cli {name}: rc {rc}, launched {got}; expected {(k1, k2, k3)}")
         for kname, c in got.items():
@@ -1721,6 +1763,304 @@ def phase_graphs(out_dir: str, models, int8_models, f32_models) -> dict:
     return out
 
 
+# ---------- phase 22: the advanced pipelines' and the matte's graphs ----------
+
+
+def _on_device(inputs, dev) -> list:
+    return [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a for a in inputs]
+
+
+def _same(a, b) -> bool:
+    """Byte equality of two callables' outputs (tensors or tuples)."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _profiled_ms(fn, iters: int = 3) -> float:
+    """Device time of one call: the CUDA kernels' time in a
+    ``torch.profiler`` window of ``iters`` calls, per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+
+def _in_turns(modes: dict, rounds: int = 3) -> dict:
+    """Median wall of each mode's call (synchronized), in turns eager,
+    graph, graph, eager: ``2 * rounds`` calls each."""
+    walls = {m: [] for m in modes}
+    for _ in range(rounds):
+        for m in ("eager", "graph", "graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            modes[m]()
+            torch.cuda.synchronize()
+            walls[m].append(time.perf_counter() - t0)
+    return {m: statistics.median(w) * 1e3 for m, w in walls.items()}
+
+
+def _signature_vs_eager(label: str, owner, fn, first: tuple, second: tuple, k1: int, k3: int,
+                        varies: bool) -> dict:
+    """One signature's graph: the capture (timed, the pool's growth), a
+    replay against the eager body on the same inputs, byte for byte, and
+    at a second value of its traced inputs; the launches of a replay (the
+    eager body's, and ``k1``/0/``k3``); graph and eager walls in turns and
+    their device time a call."""
+    dev = owner.device
+    pool0 = owner.graph_pool_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*first)  # the capture, then the first replay
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    pool = owner.graph_pool_bytes()
+    _reset()
+    out = fn(*first)
+    torch.cuda.synchronize()
+    replay = _counts()
+    _reset()
+    eout = fn.run(*_on_device(first, dev))
+    torch.cuda.synchronize()
+    eager = _counts()
+    out2, eout2 = fn(*second), fn.run(*_on_device(second, dev))
+    torch.cuda.synchronize()
+    same, same2, moved = _same(out, eout), _same(out2, eout2), not _same(out, out2)
+    expected = {"flash_attention": k1, "grid_knn": 0, "unproject": k3}
+    modes = {"graph": lambda: fn(*first), "eager": lambda: fn.run(*_on_device(first, dev))}
+    wall = _in_turns(modes)
+    device = {m: _profiled_ms(call) for m, call in modes.items()}
+    row = {"capture_s": fn.capture_s, "first_call_s": first_s, "pool_mib": pool / 2**20,
+           "pool_growth_mib": (pool - pool0) / 2**20, "launches_replay": replay,
+           "launches_eager": eager, "equal": same, "equal_second": same2, "moved": moved,
+           "wall_ms": wall, "device_ms": device}
+    log(f"graph {label}: bytes equal {same}, at the second value {same2} (output moved "
+        f"{moved}); launches a replay {replay}, eager {eager}; capture {fn.capture_s:.3f} s "
+        f"(first call {first_s:.3f} s); pool {pool / 2**20:.1f} MiB "
+        f"(+{(pool - pool0) / 2**20:.1f}); wall a call graph {wall['graph']:.3f} ms, eager "
+        f"{wall['eager']:.3f} ms (6 each, in turns); device a call graph "
+        f"{device['graph']:.3f} ms, eager {device['eager']:.3f} ms")
+    if not (same and same2 and moved == varies and replay == eager == expected):
+        raise AssertionError(f"the {label} graph disagrees with its eager body (launches "
+                             f"{replay}, expected {expected}; moved {moved}, expected {varies})")
+    return row
+
+
+def _sum_order_bound(pts: torch.Tensor, cols: torch.Tensor, voxel: float) -> tuple:
+    """Per voxel, in the voxel op's order: its point count, and the most by
+    which two f32 sums of its points and colours in different orders can
+    make the means differ (the bound beside ``VOXEL_RTOL``)."""
+    from image_to_pointcloud_tpu_torch.ops.voxel import _lexsort_zyx, voxel_downsample
+
+    _, absmean, _, c = voxel_downsample(pts, torch.cat([pts.abs(), cols.abs()], dim=1), voxel)
+    # The op's grid, as it computes it (a device scalar: CUDA divides by a
+    # host scalar as a multiplication by its reciprocal).
+    p = pts.float()
+    v = torch.full((), voxel, dtype=torch.float32, device=p.device)
+    idx3 = torch.floor((p - (p.amin(dim=0) - 0.5 * v)) / v).to(torch.int32)
+    rows, n = torch.unique(idx3, dim=0, return_counts=True)
+    n = n[_lexsort_zyx(rows)].float()
+    return n, 2.0 * (n[:, None] - 1.0) * 2.0 ** -24 * absmean[: int(c)]
+
+
+def _voxel_vs_eager(label: str, pipe, pts: torch.Tensor, cols: torch.Tensor, voxel: float) -> dict:
+    """The voxel downsample's graph (keyed by shapes) against the eager op
+    on the same cloud: the same count and valid mask, each mean within
+    ``VOXEL_RTOL`` relative or within the f32 bound of a sum taken in
+    another order (the scatter-add is atomic; :func:`_sum_order_bound`),
+    with two eager calls logged beside; walls in turns; then, on a
+    high-resolution pipeline, the voxel quantization's graph against its
+    eager body, byte for byte."""
+    from image_to_pointcloud_tpu_torch.ops.voxel import voxel_downsample
+    from image_to_pointcloud_tpu_torch.pipeline import advanced
+
+    t0 = time.perf_counter()
+    pipe._voxel_downsample(pts, cols, voxel)  # the capture
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    vp, vc, valid, cnt = pipe._voxel_downsample(pts, cols, voxel)
+    ep, ec, evalid, ecnt = voxel_downsample(pts, cols, voxel)
+    c = int(ecnt)
+    n, order_bound = _sum_order_bound(pts, cols, voxel)
+    ulp = 2.0 ** -23
+
+    def errors(a, b, bound):
+        """(max relative error, max error over the allowed error)."""
+        d = (a[:c] - b[:c]).abs()
+        rel = d / b[:c].abs().clamp_min(1e-3)
+        allowed = torch.maximum(VOXEL_RTOL * b[:c].abs().clamp_min(1e-3),
+                                bound + ulp * b[:c].abs())
+        return float(rel.max()), float((d / allowed).max())
+
+    bounds = order_bound[:, :3], order_bound[:, 3:]
+    graph_err = [errors(a, b, o) for a, b, o in zip((vp, vc), (ep, ec), bounds)]
+    err, ratio = max(e for e, _ in graph_err), max(r for _, r in graph_err)
+    e2 = voxel_downsample(pts, cols, voxel)
+    eager_err = max(errors(a, b, o)[0] for a, b, o in zip(e2[:2], (ep, ec), bounds))
+    qsame = True
+    if isinstance(pipe, advanced.HighResPipeline):
+        lo, hi = pts.amin(dim=0), pts.amax(dim=0)
+        q = [pipe._quantize_voxels(vp, vc, lo, hi) for _ in range(2)][1]  # capture, replay
+        qsame = torch.equal(q, advanced._quantize_voxels(vp, vc, lo, hi))
+    wall = _in_turns({"graph": lambda: pipe._voxel_downsample(pts, cols, voxel),
+                      "eager": lambda: voxel_downsample(pts, cols, voxel)})
+    row = {"points": pts.shape[0], "voxels": c, "largest_voxel": int(n.max()),
+           "first_call_s": first_s, "max_rel_err": err, "of_allowed": ratio,
+           "eager_vs_eager_rel_err": eager_err, "quantize_equal": qsame, "wall_ms": wall}
+    log(f"graph {label} voxel downsample of {pts.shape[0]} points at {voxel:.5f}: {int(cnt)}/{c} "
+        f"voxels (up to {int(n.max())} points, median {float(n.median()):g}), valid mask equal "
+        f"{torch.equal(valid, evalid)}, means within {err:.2e} relative (two eager calls: "
+        f"{eager_err:.2e}), {ratio:.3f} of the allowed (VOXEL_RTOL {VOXEL_RTOL:g} or the "
+        f"sum-order bound); first call {first_s:.3f} s; wall a call graph {wall['graph']:.3f} ms, "
+        f"eager {wall['eager']:.3f} ms; voxel quantization bytes equal {qsame}")
+    if not (int(cnt) == c == len(n) > 0 and torch.equal(valid, evalid) and ratio <= 1.0
+            and qsame):
+        raise AssertionError(f"the {label} voxel graphs disagree with the eager ops")
+    return row
+
+
+def _user_run(label: str, call, k1: int, k3: int, counts: dict, per_run: dict) -> float:
+    """One call of a pipeline's public entry point, read on its own: its
+    K1/K2/K3 launches (one replay a signature) and wall."""
+    _reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    wall = time.perf_counter() - t0
+    got = _counts()
+    pts = out[0] if isinstance(out, tuple) else out
+    log(f"{label}: {wall * 1e3:.1f} ms, launches {got}, output {np.shape(pts)}, finite "
+        f"{bool(np.isfinite(pts).all())}")
+    if got != {"flash_attention": k1, "grid_knn": 0, "unproject": k3} or not (
+            np.size(pts) and np.isfinite(pts).all()):
+        raise AssertionError(f"{label}: launched {got}, expected ({k1}, 0, {k3})")
+    for name, c in got.items():
+        counts[name] = counts.get(name, 0) + c
+        per_run.setdefault(name, {})[label] = c
+    return wall
+
+
+def _intrinsics(b: int, second: bool) -> tuple:
+    """(fx, fy, cx, cy) of ``b`` 518² frames: a 60° camera at the centre, or
+    a 75° one off it."""
+    from image_to_pointcloud_tpu_torch.pipeline.advanced import CameraIntrinsics
+
+    cam = CameraIntrinsics.from_fov(518, 518, 75.0 if second else 60.0)
+    shift = 20.0 if second else 0.0
+    return tuple(np.full((b,), v, np.float32)
+                 for v in (cam.fx, cam.fy * (1.05 if second else 1.0), cam.cx + shift, cam.cy - shift))
+
+
+def _release() -> None:
+    """Frees the graphs and pools of the pipelines just dropped."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_advanced_graphs(models) -> tuple[dict, dict, dict]:
+    """Each advanced signature at full width, random init, bf16, and the v2
+    matte's (f32), through ``_fn`` on a fresh pipeline: the graph against
+    its eager body byte for byte, at the captured and at a second depth
+    scale, intrinsics or image; launches a replay; capture time and pool;
+    walls and device time a call, graph against eager. ``MetricPipeline``
+    with ``depth-anything-v2-metric-small`` and ``zoedepth`` on 518² frames
+    at batch 1 and 4, both transfers; ``HighResPipeline`` with DA-V2-Small
+    on a 1024² frame (tile 518, overlap 128: the anchor and 9 tiles), the
+    depth grid and the device path with its voxel downsample to 1 M points;
+    ``VideoPipeline`` with DA-V2-Small on 30 518² frames at step 2,
+    quantized and fused at voxel 0.05; ``MatteModel`` (SegFormer-B0, 512²).
+    Each pipeline's public entry point is then run once, read on its own.
+    Returns the rows, and the entry points' launches (totals and per run)."""
+    from image_to_pointcloud_tpu_torch.models.segformer import SegformerMatte, segformer_b0
+    from image_to_pointcloud_tpu_torch.pipeline import advanced
+    from image_to_pointcloud_tpu_torch.serve.matting import MatteModel
+
+    rows: dict = {}
+    counts: dict = {}
+    per_run: dict = {}
+    s1, s2 = np.asarray([15.0], np.float32), np.asarray([4.5], np.float32)
+    for name, k1 in (("depth-anything-v2-metric-small", 12), ("zoedepth", 0)):
+        model = models.get(name).model
+        for quantized in (False, True):
+            pipe = advanced.MetricPipeline(model, quantized_transfer=quantized)
+            transfer = "quantized" if quantized else "f32"
+            for b in (1, 4):
+                imgs = np.stack([_frame(518, 518, 60 + i) for i in range(b)])
+                label = f"metric {name} b{b} {transfer}"
+                rows[label] = _signature_vs_eager(
+                    label, pipe, pipe._fn(b, 518, 518, 1), (imgs, *_intrinsics(b, False)),
+                    (imgs, *_intrinsics(b, True)), k1, 0, varies=not quantized)
+                cams = [advanced.CameraIntrinsics(*(float(v[i]) for v in _intrinsics(b, True)))
+                        for i in range(b)]
+                rows[label]["run_s"] = _user_run(f"{label} run_batch",
+                                                 lambda: pipe.run_batch(imgs, cams)[0], k1, 0,
+                                                 counts, per_run)
+            del pipe
+            _release()
+
+    da = models.get("depth-anything-v2").model
+    big = _frame(1024, 1024, 6)
+    pipe = advanced.HighResPipeline(da, quantized_transfer=True)
+    rows["highres grid"] = _signature_vs_eager("highres 1024² grid", pipe,
+                                               pipe._fn(1024, 1024, 1, True), (big, s1), (big, s2),
+                                               24, 0, varies=False)
+    rows["highres grid"]["run_s"] = _user_run("highres 1024² run (depth grid, native voxel)",
+                                              lambda: pipe.run(big), 24, 0, counts, per_run)
+    del pipe
+    _release()
+    pipe = advanced.HighResPipeline(da, quantized_transfer=False)
+    fn = pipe._fn(1024, 1024, 1, False)
+    rows["highres device"] = _signature_vs_eager("highres 1024² device", pipe, fn, (big, s1),
+                                                 (big, s2), 24, 1, varies=True)
+    packed, bbox = fn(big, s1)
+    lo, hi = bbox.cpu().numpy()
+    voxel = (float(np.prod(np.maximum(hi - lo, 1e-6))) / 1_000_000) ** (1.0 / 3.0)
+    rows["highres device"]["voxel"] = _voxel_vs_eager("highres 1024² device", pipe,
+                                                      packed[:3].T, packed[3:6].T, voxel)
+    rows["highres device"]["run_s"] = _user_run(
+        "highres 1024² run (device voxel, budget 1M)",
+        lambda: pipe.run(big, voxel_budget=1_000_000), 24, 1, counts, per_run)
+    del pipe, fn, packed, bbox
+    _release()
+
+    clip = np.stack([_frame(518, 518, 70 + i) for i in range(30)])
+    pipe = advanced.VideoPipeline(da)
+    rows["video quantized"] = _signature_vs_eager(
+        "video 30x518² quantized", pipe, pipe._fn(30, 518, 518, 2, True), (clip, s1), (clip, s2),
+        12, 0, varies=False)
+    rows["video quantized"]["run_s"] = _user_run("video 30x518² run", lambda: pipe.run(clip),
+                                                 12, 0, counts, per_run)
+    fn = pipe._fn(30, 518, 518, 2)
+    rows["video voxel"] = _signature_vs_eager("video 30x518² unfused", pipe, fn, (clip, s1),
+                                              (clip, s2), 12, 1, varies=True)
+    packed = fn(clip, s1)
+    pts = packed[:, :3, :].transpose(1, 2).reshape(-1, 3)
+    cols = packed[:, 3:6, :].transpose(1, 2).reshape(-1, 3)
+    rows["video voxel"]["voxel"] = _voxel_vs_eager("video 30x518²", pipe, pts, cols, 0.05)
+    rows["video voxel"]["run_s"] = _user_run("video 30x518² run --voxel 0.05",
+                                             lambda: pipe.run(clip, fuse_voxel=0.05), 12, 1,
+                                             counts, per_run)
+    del pipe, fn, packed, pts, cols
+    _release()
+
+    torch.manual_seed(0)
+    matte = MatteModel(SegformerMatte(segformer_b0(1)).state_dict(), 1, "cuda")
+    ims = [_frame(512, 512, 80 + i)[None] for i in range(2)]
+    rows["matte"] = _signature_vs_eager("matte SegFormer-B0 512²", matte, matte._fn(1, 512, 512),
+                                        (ims[0],), (ims[1],), 0, 0, varies=True)
+    rows["matte"]["run_s"] = _user_run("matte alpha 640x480",
+                                       lambda: matte.alpha(_frame(480, 640, 82)), 0, 0,
+                                       counts, per_run)
+    del matte
+    _release()
+    log(f"advanced graph phase numbers: {json.dumps(rows, default=str)}")
+    return rows, counts, per_run
+
+
 def phase_triposr(base: str) -> None:
     """A dummy-model request, and the dummy graphs on the card against the
     CPU, bit for bit."""
@@ -2072,9 +2412,9 @@ def phase_matte(models) -> dict[str, int]:
     if not (err <= SEGFORMER_TOL and perr <= MATTE_TOL):
         raise AssertionError("the SegFormer matte on the card disagrees")
 
-    # The resampler uploads its weights each call, so a CUDA graph cannot
-    # capture the forward: its device time is the kernels' sum in a
-    # torch.profiler window (as tools/profile_torch_pipeline.py reads it).
+    # The forward's device time is the kernels' sum in a torch.profiler
+    # window (as tools/profile_torch_pipeline.py reads it); phase 22 runs
+    # the matte's CUDA graph.
     from torch.profiler import ProfilerActivity, profile
 
     x = (torch.from_numpy(frame[None]).cuda().float() / 255.0 - card._mean) / card._std
@@ -2890,6 +3230,10 @@ def main() -> int:
             counts[name] += c
             per_request[name].update(mesh_runs[name])
         timed(phase_busy_share, timed_runs)
+        _, adv_counts, adv_runs = timed(phase_advanced_graphs, models)
+        for name, c in adv_counts.items():
+            counts[name] += c
+            per_request[name].update(adv_runs[name])
         timed(phase_profile, out_dir, models)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 

@@ -58,7 +58,9 @@ def num_points(h: int, w: int, step: int) -> int:
 
 def _f32_on(v: "torch.Tensor | float", device: torch.device) -> torch.Tensor:
     """``v`` as f32 on ``device``: a Python number by a fill (no host
-    copy, so a CUDA graph may capture it), anything else converted."""
+    copy, so a CUDA graph may capture it, though a replay keeps the
+    captured value: a value that changes between calls enters a graph as
+    a tensor), anything else converted."""
     if isinstance(v, (int, float)):
         return torch.full((), v, dtype=torch.float32, device=device)
     return torch.as_tensor(v, dtype=torch.float32, device=device)

@@ -15,6 +15,14 @@ On the CPU the scatter-add runs in the sorted order, as XLA's does, so the
 sums are the JAX package's bit for bit. On CUDA ``index_add_`` is atomic:
 each voxel's sum is taken in an order that changes from run to run, so
 the means differ from the CPU's by a few f32 ulp of the coordinates.
+
+The function copies nothing from the host and reads no value back, so a
+CUDA graph may capture it: the advanced pipelines run it through a graph
+keyed by the inputs' shapes, as the JAX package's jit retraces on shapes,
+with the voxel size a device tensor among the graph's inputs (a Python
+number becomes a fill, whose value a graph would freeze). A replay sums
+in an atomic order of its own too: against an eager call it gives the
+same count and valid mask, and means within a few ulp.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ def _lexsort_zyx(idx3: torch.Tensor) -> torch.Tensor:
 def voxel_downsample(
     points: torch.Tensor,
     colors: torch.Tensor,
-    voxel_size: float,
+    voxel_size: "torch.Tensor | float",
     valid: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Average points and colours per occupied voxel.
@@ -43,7 +51,8 @@ def voxel_downsample(
     Args:
       points: (N, 3) float32.
       colors: (N, C) float32, averaged alongside the positions.
-      voxel_size: the voxel edge length.
+      voxel_size: the voxel edge length: a number, or a one-element f32
+        tensor on the points' device.
       valid: optional (N,) bool mask of live inputs.
 
     Returns:
@@ -56,8 +65,11 @@ def voxel_downsample(
     c = colors.float()
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=dev)
-    vsize = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
-    inf = torch.tensor(float("inf"), device=dev)
+    if isinstance(voxel_size, torch.Tensor):
+        vsize = voxel_size.to(device=dev, dtype=torch.float32)
+    else:
+        vsize = torch.full((), voxel_size, dtype=torch.float32, device=dev)
+    inf = torch.full((), float("inf"), device=dev)
     minb = torch.where(valid[:, None], p, inf).amin(dim=0)
     idx3 = torch.floor((p - (minb - 0.5 * vsize)) / vsize).to(torch.int32)
     iv = torch.where(valid[:, None], idx3, torch.iinfo(torch.int32).max)  # invalid last

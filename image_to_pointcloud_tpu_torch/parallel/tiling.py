@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from image_to_pointcloud_tpu_torch.utils.constants import device_constant
+
 __all__ = ["blend_tiles", "extract_tiles", "plan_tiles"]
 
 
@@ -75,7 +77,8 @@ def blend_tiles(
     h, w = out_hw
     t = tile_depths.shape[1]
     dev = tile_depths.device
-    fw = torch.from_numpy(np.outer(_feather_1d(t), _feather_1d(t))).to(dev)
+    fw = device_constant(("feather", t), dev, torch.float32,
+                         lambda: np.outer(_feather_1d(t), _feather_1d(t)))
     acc = torch.zeros((h, w), dtype=torch.float32, device=dev)
     wacc = torch.zeros((h, w), dtype=torch.float32, device=dev)
     for i, (y, x) in enumerate(corners):

@@ -25,11 +25,23 @@ The packed depth is 12-bit; ``IPC_TPU_DEPTH16=1`` selects u16.
   strided depth crosses and the host reconstructs; with ``fuse_voxel``
   the device unprojects every frame (K3, once for the clip) and
   voxel-fuses the clip.
+
+As the JAX package jits each pipeline's device program once per
+signature, each pipeline keeps one callable per signature under the JAX
+cache key (``_fn``, held in ``_compiled``): on CUDA a CUDA graph,
+captured on first use and replayed as one launch
+(``pipeline/graph.py``'s ``_CompiledGraph``), on the CPU its eager body
+(``_forward``). The images and the values JAX traces (``depth_scale``,
+the intrinsics) are the graph's inputs, so a replay at a new value
+computes with it. The voxel downsample and the voxel quantization run
+after the host has read the count and the bounding box, as in the JAX
+package, each through a callable keyed by its inputs' shapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 
@@ -48,6 +60,8 @@ from image_to_pointcloud_tpu_torch.ops.unproject import (
 from image_to_pointcloud_tpu_torch.ops.voxel import voxel_downsample
 from image_to_pointcloud_tpu_torch.parallel.tiling import blend_tiles, extract_tiles, plan_tiles
 from image_to_pointcloud_tpu_torch.pipeline.graph import (
+    _CompiledGraph,
+    _GraphOwner,
     default_quantized_transfer,
     exact_f32,
     wants_exact_f32,
@@ -104,13 +118,34 @@ def _unpack_depth(sec: np.ndarray, n: int, bits: int) -> tuple[np.ndarray, float
     return np.ascontiguousarray(sec).view(np.uint16).reshape(sec.shape[0], n), 65535.0
 
 
-class _ModelPipeline:
-    """The model, its device and the family's preprocessing spec."""
+def _scalar(v: float) -> np.ndarray:
+    """A traced f32 scalar as a callable's (1,) input."""
+    return np.asarray([v], np.float32)
+
+
+_voxel_downsample = torch.inference_mode()(voxel_downsample)
+
+
+@torch.inference_mode()
+def _quantize_voxels(vp, vc, lo, hi) -> torch.Tensor:
+    """(N, 3) f32 points + colours → (N, 9) u8 [u16 xyz LE | u8 rgb]."""
+    scale = torch.where(hi > lo, hi - lo, 1.0)
+    q = ((vp - lo) / scale).clamp(0.0, 1.0)
+    xyz16 = torch.round(q * 65535.0).to(torch.int32)
+    xyz8 = torch.stack([xyz16 & 0xFF, xyz16 >> 8], dim=-1).to(torch.uint8).reshape(-1, 6)
+    rgb8 = torch.round(vc).clamp(0, 255).to(torch.uint8)
+    return torch.cat([xyz8, rgb8], dim=1)
+
+
+class _ModelPipeline(_GraphOwner):
+    """The model, its device, the family's preprocessing spec and the
+    signature cache."""
 
     def __init__(self, model: nn.Module, model_target, quantized_transfer: bool | None):
         self.model = model.eval()
         self.cfg = model.cfg
-        self.device = next(model.parameters()).device
+        device = next(model.parameters()).device
+        super().__init__(device, device.type == "cuda")
         # f32 on CUDA runs without TF32 (``pipeline/graph.py``); the dtype is
         # the first floating parameter's, as ``DepthPipeline`` reads it.
         dtype = next(t.dtype for t in model.parameters() if t.is_floating_point())
@@ -140,8 +175,10 @@ class _ModelPipeline:
         with exact_f32(self.exact_f32):
             return self.model(x)
 
-    def _to_device(self, imgs_u8: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.require(imgs_u8, requirements=["C", "W"])).to(self.device).float()
+    def _voxel_downsample(self, pts: torch.Tensor, cols: torch.Tensor, voxel: float):
+        """:func:`~..ops.voxel.voxel_downsample` through the callable of
+        its inputs' shapes, the voxel size one of its inputs."""
+        return self._op("voxel_downsample", _voxel_downsample, pts, cols, _scalar(voxel))
 
 
 class MetricPipeline(_ModelPipeline):
@@ -164,10 +201,19 @@ class MetricPipeline(_ModelPipeline):
                              "depth-anything-v2-metric-*)")
         super().__init__(model, model_target, quantized_transfer)
 
+    def _fn(self, b: int, h: int, w: int, step: int) -> _CompiledGraph:
+        """The callable of one signature: ``fn(imgs_u8, fx, fy, cx, cy)``,
+        (b, h, w, 3) u8 pixels and (b,) f32 intrinsics → :meth:`_forward`'s
+        output."""
+        return self._signature((b, h, w, step), functools.partial(self._forward, step=step))
+
     @torch.inference_mode()
-    def _forward(self, imgs_u8: np.ndarray, fx, fy, cx, cy, step: int) -> torch.Tensor:
+    def _forward(self, imgs_u8: torch.Tensor, fx, fy, cx, cy, *, step: int) -> torch.Tensor:
+        """The eager body, on the model's device: (B, h, w, 3) pixels and
+        (B,) f32 intrinsics → the (B, 8, N) f32 cloud, or the (B, L) u8
+        quantized rows."""
         b, h, w = imgs_u8.shape[:3]
-        img = self._to_device(imgs_u8)
+        img = imgs_u8.float()
         pad_h, pad_w = reflect_pad_margins(self.cfg, h, w)
         hp, wp = h + 2 * pad_h, w + 2 * pad_w
         img_in = img
@@ -180,9 +226,8 @@ class MetricPipeline(_ModelPipeline):
             d = resize_planes(depth, (hp, wp), "bicubic_torch")[:, pad_h : hp - pad_h, pad_w : wp - pad_w]
         else:
             d = resize_planes(depth, (h, w), "linear")
-        cam = [torch.from_numpy(v).to(self.device) for v in (fx, fy, cx, cy)]
         if not self.quantized_transfer:
-            return unproject_intrinsics(d, img, fx=cam[0], fy=cam[1], cx=cam[2], cy=cam[3], step=step)
+            return unproject_intrinsics(d, img, fx=fx, fy=fy, cx=cx, cy=cy, step=step)
         ds = d[:, ::step, ::step]
         keep = (ds > 0.0).reshape(b, -1)
         maxd = ds.reshape(b, -1).amax(dim=1).clamp_min(1e-12)
@@ -205,7 +250,7 @@ class MetricPipeline(_ModelPipeline):
             intrinsics = [intrinsics] * b
         fx, fy, cx, cy = (np.asarray([getattr(i, a) for i in intrinsics], np.float32)
                           for a in ("fx", "fy", "cx", "cy"))
-        out = self._forward(imgs, fx, fy, cx, cy, step).cpu().numpy()
+        out = self._fn(b, h, w, step)(imgs, fx, fy, cx, cy).cpu().numpy()
         results: list[tuple[np.ndarray, np.ndarray]] = []
         if not self.quantized_transfer:
             for packed in out:
@@ -268,17 +313,25 @@ class HighResPipeline(_ModelPipeline):
         self.tile = tile
         self.overlap = overlap
 
+    def _fn(self, h: int, w: int, step: int, grid: bool = False) -> _CompiledGraph:
+        """The callable of one signature: ``fn(img_u8, depth_scale)``, an
+        (h, w, 3) u8 image and a (1,) f32 scale → :meth:`_forward`'s
+        outputs."""
+        return self._signature((h, w, step, grid),
+                               functools.partial(self._forward, step=step, grid=grid))
+
     @torch.inference_mode()
-    def _forward(self, image_rgb_u8: np.ndarray, depth_scale: float, step: int, grid: bool):
-        """→ the packed depth section (1, L) u8 when ``grid``, else the
-        (8, N) packed cloud and its (2, 3) bbox."""
-        h, w = image_rgb_u8.shape[:2]
+    def _forward(self, img_u8: torch.Tensor, depth_scale, *, step: int, grid: bool):
+        """The eager body, on the model's device: an (h, w, 3) image and the
+        depth scale → the packed depth section (1, L) u8 when ``grid``,
+        else the (8, N) packed cloud and its (2, 3) bbox."""
+        h, w = img_u8.shape[:2]
         # Clamped to the image: a 640×480 photo tiles at 480, and the
         # overlap stays below the tile.
         tile = min(self.tile, h, w)
         overlap = max(0, min(self.overlap, tile - 1))
         corners = plan_tiles(h, w, tile, overlap)
-        img = self._to_device(image_rgb_u8)
+        img = img_u8.float()
         # The global anchor pass at the model resolution, upsampled.
         anchor = resize_planes(self._predict(img[None], (h, w)), (h, w), "linear")[0]
         # Every tile in one batch.
@@ -291,15 +344,10 @@ class HighResPipeline(_ModelPipeline):
         # The cloud's bbox: the host sizes the voxel from 24 bytes.
         return packed, torch.stack([packed[:3].amin(dim=1), packed[:3].amax(dim=1)])
 
-    @staticmethod
-    def _quantize_voxels(vp, vc, lo, hi) -> torch.Tensor:
-        """(N, 3) f32 points + colours → (N, 9) u8 [u16 xyz LE | u8 rgb]."""
-        scale = torch.where(hi > lo, hi - lo, 1.0)
-        q = ((vp - lo) / scale).clamp(0.0, 1.0)
-        xyz16 = torch.round(q * 65535.0).to(torch.int32)
-        xyz8 = torch.stack([xyz16 & 0xFF, xyz16 >> 8], dim=-1).to(torch.uint8).reshape(-1, 6)
-        rgb8 = torch.round(vc).clamp(0, 255).to(torch.uint8)
-        return torch.cat([xyz8, rgb8], dim=1)
+    def _quantize_voxels(self, vp, vc, lo, hi) -> torch.Tensor:
+        """(N, 3) f32 points + colours → (N, 9) u8 [u16 xyz LE | u8 rgb],
+        through the callable of their shapes."""
+        return self._op("quantize_voxels", _quantize_voxels, vp, vc, lo, hi)
 
     def run(
         self,
@@ -309,6 +357,7 @@ class HighResPipeline(_ModelPipeline):
         step: int = 1,
         voxel_budget: int | None = 1_000_000,
     ) -> tuple[np.ndarray, np.ndarray]:
+        h, w = image_rgb_u8.shape[:2]
         if self.quantized_transfer:
             from image_to_pointcloud_tpu_torch import native
 
@@ -317,7 +366,7 @@ class HighResPipeline(_ModelPipeline):
                                            voxel_budget=voxel_budget)
                 if out is not None:
                     return out
-        packed, bbox = self._forward(image_rgb_u8, depth_scale, step, grid=False)
+        packed, bbox = self._fn(h, w, step)(image_rgb_u8, _scalar(depth_scale))
         pts, cols = packed[:3].T, packed[3:6].T
         if voxel_budget is None or pts.shape[0] <= voxel_budget:
             return pts.cpu().numpy(), cols.cpu().numpy()
@@ -326,13 +375,12 @@ class HighResPipeline(_ModelPipeline):
         lo, hi = bbox.cpu().numpy()
         vol = float(np.prod(np.maximum(hi - lo, 1e-6)))
         voxel = (vol / voxel_budget) ** (1.0 / 3.0)
-        with torch.inference_mode():
-            vp, vc, _, cnt = voxel_downsample(pts, cols, voxel)
-            cnt = int(cnt)
-            if not self.quantized_transfer:
-                return vp[:cnt].cpu().numpy(), vc[:cnt].cpu().numpy()
-            # Sliced on the device, before the copy.
-            buf = self._quantize_voxels(vp, vc, bbox[0], bbox[1])[:cnt].cpu().numpy()
+        vp, vc, _, cnt = self._voxel_downsample(pts, cols, voxel)
+        cnt = int(cnt)
+        if not self.quantized_transfer:
+            return vp[:cnt].cpu().numpy(), vc[:cnt].cpu().numpy()
+        # Sliced on the device, before the copy.
+        buf = self._quantize_voxels(vp, vc, bbox[0], bbox[1])[:cnt].cpu().numpy()
         xyz16 = np.ascontiguousarray(buf[:, :6]).view(np.uint16).astype(np.float32)
         scale = np.where(hi > lo, hi - lo, 1.0).astype(np.float32)
         points = xyz16 / np.float32(65535.0) * scale + lo.astype(np.float32)
@@ -351,7 +399,7 @@ class HighResPipeline(_ModelPipeline):
         from image_to_pointcloud_tpu_torch import native
 
         h, w = image_rgb_u8.shape[:2]
-        sec = self._forward(image_rgb_u8, depth_scale, step, grid=True).cpu().numpy()
+        sec = self._fn(h, w, step, grid=True)(image_rgb_u8, _scalar(depth_scale)).cpu().numpy()
         hh, ww = -(-h // step), -(-w // step)
         d16, denom = _unpack_depth(sec, hh * ww, self.depth_bits)
         rec = native.reconstruct_points(
@@ -387,10 +435,20 @@ class VideoPipeline(_ModelPipeline):
     ):
         super().__init__(model, model_target, quantized_transfer)
 
+    def _fn(self, t: int, h: int, w: int, step: int, quant: bool = False) -> _CompiledGraph:
+        """The callable of one signature: ``fn(frames_u8, depth_scale)``,
+        (t, h, w, 3) u8 frames and a (1,) f32 scale → :meth:`_forward`'s
+        output."""
+        return self._signature((t, h, w, step, quant),
+                               functools.partial(self._forward, step=step, quant=quant))
+
     @torch.inference_mode()
-    def _forward(self, frames_u8: np.ndarray, depth_scale: float, step: int, quant: bool):
+    def _forward(self, frames_u8: torch.Tensor, depth_scale, *, step: int, quant: bool):
+        """The eager body, on the model's device: (T, h, w, 3) frames and
+        the depth scale → the (T, L) u8 packed depth when ``quant``, else
+        the (T, 8, N) packed clouds."""
         t, h, w = frames_u8.shape[:3]
-        img = self._to_device(frames_u8)
+        img = frames_u8.float()
         d = resize_planes(self._predict(img, (h, w)), (h, w), "linear")
         dn = torch.stack([normalize_depth(dd, True) for dd in d])
         if quant:
@@ -408,7 +466,8 @@ class VideoPipeline(_ModelPipeline):
         """(T, H, W, 3) clip → fused (points, colors)."""
         t, h, w = frames_rgb_u8.shape[:3]
         if fuse_voxel is None and self.quantized_transfer:
-            out = self._forward(frames_rgb_u8, depth_scale, step, quant=True).cpu().numpy()
+            out = self._fn(t, h, w, step, quant=True)(frames_rgb_u8, _scalar(depth_scale))
+            out = out.cpu().numpy()
             hh, ww = -(-h // step), -(-w // step)
             n = hh * ww
             d16, denom = _unpack_depth(out, n, self.depth_bits)
@@ -433,13 +492,12 @@ class VideoPipeline(_ModelPipeline):
             pts = xyz.transpose(0, 2, 1).reshape(t * n, 3)
             cols = frames_rgb_u8[:, ::step, ::step, :].reshape(t * n, 3).astype(np.float32)
             return pts, cols
-        packed = self._forward(frames_rgb_u8, depth_scale, step, quant=False)
+        packed = self._fn(t, h, w, step)(frames_rgb_u8, _scalar(depth_scale))
         tt, _, n = packed.shape
         pts = packed[:, :3, :].transpose(1, 2).reshape(tt * n, 3)
         cols = packed[:, 3:6, :].transpose(1, 2).reshape(tt * n, 3)
         if fuse_voxel is not None:
-            with torch.inference_mode():
-                vp, vc, _, cnt = voxel_downsample(pts, cols, fuse_voxel)
-                cnt = int(cnt)
-                return vp[:cnt].cpu().numpy(), vc[:cnt].cpu().numpy()
+            vp, vc, _, cnt = self._voxel_downsample(pts, cols, fuse_voxel)
+            cnt = int(cnt)
+            return vp[:cnt].cpu().numpy(), vc[:cnt].cpu().numpy()
         return pts.cpu().numpy(), cols.cpu().numpy()

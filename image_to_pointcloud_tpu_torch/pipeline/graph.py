@@ -30,7 +30,10 @@ or the JPEG packers) is the graph's one input, unpacked on the device by
 the graph's first operations. The first call of a signature captures it
 (one eager pass, then the capture: see :class:`_CompiledGraph`); the
 server's warmup captures every batch bucket of its warmup sizes ahead of
-traffic. On the CPU and on a mesh the same callable runs eagerly.
+traffic. On the CPU and on a mesh the same callable runs eagerly. The
+advanced pipelines (``pipeline/advanced.py``) and the v2 matte
+(``serve/matting.py``) keep their signatures the same way: each is a
+:class:`_GraphOwner`, as :class:`DepthPipeline` is.
 :meth:`DepthPipeline.submit_batch` enqueues the work (asynchronous on
 CUDA) and :meth:`DepthPipeline.collect` brings the result to the host and
 splits it per image.
@@ -522,68 +525,84 @@ _CAPTURE_LOCK = threading.Lock()
 _CAPTURE_STREAMS: dict = {}
 
 
-class _CompiledGraph:
-    """``fn(payload_u8) -> (out, preview)`` of one signature, the port's
-    counterpart of the JAX package's jitted graph; ``payload_u8`` is the
-    (batch, nbytes) u8 host payload, and ``run`` the signature's eager
-    body (payload tensor → unpack → :meth:`DepthPipeline._forward` on each
-    data slot, under :func:`exact_f32` as every forward).
+def _clone(out):
+    """Fresh copies of a callable's outputs (a tensor, None, or a tuple of
+    them)."""
+    if isinstance(out, tuple):
+        return tuple(_clone(t) for t in out)
+    return None if out is None else out.clone()
 
-    On the CPU and on a mesh a call runs ``run`` eagerly. On CUDA the first
-    call captures ``run`` into a CUDA graph, under the pipeline's build
-    lock: one eager pass first, on the capture stream (it makes the device
-    constants and settles cuBLAS and cuDNN; its result is dropped and,
-    like an XLA compile, it counts no launch), then the capture on the
-    same stream, into the memory pool that the pipeline's graphs share. A
-    capture that fails raises, naming the signature; nothing falls back to
-    eager. Each call (the first too) copies the payload from pinned memory
-    into the graph's static input, replays the graph and returns fresh
-    copies of its static outputs: two drains may be in flight before
-    either is collected, and the JAX package's executables return new
-    buffers on every call. The copy in, the replay and the copy out hold
-    the pipeline's replay lock, and a replay waits for the pipeline's
+
+class _CompiledGraph:
+    """``fn(*inputs) -> outputs`` of one signature, the port's counterpart
+    of one of the JAX package's jitted functions; ``run(*tensors)`` is the
+    signature's eager body (for :class:`DepthPipeline`: the payload tensor
+    → unpack → :meth:`DepthPipeline._forward` on each data slot, under
+    :func:`exact_f32` as every forward). An input is a host numpy array
+    (u8 pixels, a packed payload, f32 scalars) or a tensor on the owner's
+    device; the outputs are a tensor, None, or a tuple of them.
+
+    When its owner runs no graphs (the CPU, a mesh) a call runs ``run``
+    eagerly on the inputs as tensors. On CUDA the first call captures
+    ``run`` into a CUDA graph, under the owner's build lock: one eager pass
+    first, on the capture stream (it makes the device constants and
+    settles cuBLAS and cuDNN; its result is dropped and, like an XLA
+    compile, it counts no launch), then the capture on the same stream,
+    into the memory pool that the owner's graphs share. Each input has a
+    static tensor of its own in the graph. A capture that fails raises,
+    naming the signature; nothing falls back to eager. Each call (the
+    first too) copies each host input from pinned memory, and each device
+    input on the device, into its static input, replays the graph and
+    returns fresh copies of its static outputs: two calls may be in flight
+    before either is read, and the JAX package's executables return new
+    buffers on every call. The copies in, the replay and the copies out
+    hold the owner's replay lock, and a replay waits for the owner's
     previous one on the card: the graphs share one pool, so no two of
     their replays may overlap. Each replay counts the hand kernels'
     launches it replays (``cuda.replayed``)."""
 
-    def __init__(self, pipeline: "DepthPipeline", key: tuple, run):
-        self.pipeline, self.key, self.run = pipeline, key, run
+    def __init__(self, owner: "_GraphOwner", key: tuple, run):
+        self.owner, self.key, self.run = owner, key, run
         self.graph: "torch.cuda.CUDAGraph | None" = None
-        self.static_in: torch.Tensor | None = None
-        self.static_out: tuple = ()
+        self.static_in: tuple = ()
+        self.static_out = None
         self.launches: dict = {}  # cuda.Kernel → launches a replay
         self.capture_s: float | None = None  # wall seconds of the warm-up and capture
 
-    def __call__(self, payload_u8: np.ndarray) -> tuple[torch.Tensor, torch.Tensor | None]:
-        payload = torch.from_numpy(np.ascontiguousarray(payload_u8))
-        pipe = self.pipeline
-        if not pipe.cuda_graphs:
-            return self.run(payload)
-        staged = payload.pin_memory()
+    def __call__(self, *inputs):
+        args = [torch.from_numpy(np.require(a, requirements=["C", "W"]))
+                if isinstance(a, np.ndarray) else a for a in inputs]
+        owner = self.owner
+        if not owner.cuda_graphs:
+            return self.run(*args)
+        staged = [a.pin_memory() if a.device.type == "cpu" else a for a in args]
         if self.graph is None:
-            with pipe._build_lock:
+            with owner._build_lock:
                 if self.graph is None:
                     self._capture(staged)
-        if staged.shape != self.static_in.shape:
-            raise ValueError(f"payload {tuple(staged.shape)} does not match the signature "
-                             f"{self.key}'s {tuple(self.static_in.shape)}")
+        if [(s.shape, s.dtype) for s in staged] != [(t.shape, t.dtype) for t in self.static_in]:
+            raise ValueError(
+                f"inputs {[(tuple(s.shape), s.dtype) for s in staged]} do not match the "
+                f"signature {self.key}'s {[(tuple(t.shape), t.dtype) for t in self.static_in]}")
         return self._replay(staged)
 
-    def _capture(self, staged: torch.Tensor) -> None:
-        pipe = self.pipeline
-        dev = pipe.device
+    def _capture(self, staged: list) -> None:
+        owner = self.owner
+        dev = owner.device
         t0 = time.perf_counter()
         with _CAPTURE_LOCK:
             stream = _CAPTURE_STREAMS.get(dev)
             if stream is None:
                 stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
-            if pipe._graph_pool is None:
-                pipe._graph_pool = torch.cuda.graph_pool_handle()
-            static_in = torch.empty(tuple(staged.shape), dtype=torch.uint8, device=dev)
+            if owner._graph_pool is None:
+                owner._graph_pool = torch.cuda.graph_pool_handle()
+            static_in = tuple(torch.empty(tuple(s.shape), dtype=s.dtype, device=dev)
+                              for s in staged)
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream), cuda.recording_launches():
-                static_in.copy_(staged, non_blocking=True)
-                self.run(static_in)  # the warm-up pass
+                for t, s in zip(static_in, staged):
+                    t.copy_(s, non_blocking=True)
+                self.run(*static_in)  # the warm-up pass
             graph = torch.cuda.CUDAGraph()
             # A graph that the cyclic collector destroyed during the capture
             # (pipelines and their graphs hold each other) would free its
@@ -594,10 +613,10 @@ class _CompiledGraph:
             gc.disable()
             try:
                 with cuda.recording_launches() as launches, torch.cuda.graph(
-                    graph, pool=pipe._graph_pool, stream=stream,
+                    graph, pool=owner._graph_pool, stream=stream,
                     capture_error_mode="thread_local",
                 ):
-                    static_out = self.run(static_in)
+                    static_out = self.run(*static_in)
             except RuntimeError as e:
                 raise RuntimeError(f"CUDA graph capture of signature {self.key} failed: {e}") from e
             finally:
@@ -607,22 +626,76 @@ class _CompiledGraph:
         self.capture_s = time.perf_counter() - t0
         self.graph = graph  # last: a caller that sees the graph sees the rest
 
-    def _replay(self, staged: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
-        pipe = self.pipeline
-        stream = torch.cuda.current_stream(pipe.device)
-        with pipe._replay_lock:
-            if pipe._replay_done is None:
-                pipe._replay_done = torch.cuda.Event()
-            stream.wait_event(pipe._replay_done)
-            self.static_in.copy_(staged, non_blocking=True)
+    def _replay(self, staged: list):
+        owner = self.owner
+        stream = torch.cuda.current_stream(owner.device)
+        with owner._replay_lock:
+            if owner._replay_done is None:
+                owner._replay_done = torch.cuda.Event()
+            stream.wait_event(owner._replay_done)
+            for t, s in zip(self.static_in, staged):
+                t.copy_(s, non_blocking=True)
             self.graph.replay()
-            out, prev = (None if t is None else t.clone() for t in self.static_out)
-            pipe._replay_done.record(stream)
+            out = _clone(self.static_out)
+            owner._replay_done.record(stream)
         cuda.replayed(self.launches)
-        return out, prev
+        return out
 
 
-class DepthPipeline:
+class _GraphOwner:
+    """The signature cache of an object that runs compiled programs on one
+    device (:class:`DepthPipeline`, the advanced pipelines, the v2 matte):
+    its callables (:class:`_CompiledGraph`) under the JAX package's keys in
+    ``_compiled``, the shape-keyed ones of its ops (:meth:`_op`), and what
+    their CUDA graphs share: the build lock, the memory pool, the replay
+    lock and the last replay's event. ``cuda_graphs`` says whether the
+    callables capture (on CUDA) or run eagerly."""
+
+    def __init__(self, device: torch.device, cuda_graphs: bool):
+        self.device = device
+        self.cuda_graphs = cuda_graphs
+        self._compiled: dict[tuple, _CompiledGraph] = {}
+        self._op_graphs: dict[tuple, _CompiledGraph] = {}
+        self._build_lock = threading.Lock()
+        self._graph_pool = None  # the memory pool the graphs share
+        self._replay_lock = threading.Lock()
+        self._replay_done: "torch.cuda.Event | None" = None
+
+    def _get(self, key: tuple, builder, cache: "dict | None" = None) -> _CompiledGraph:
+        cache = self._compiled if cache is None else cache
+        fn = cache.get(key)
+        if fn is None:
+            # Concurrent callers (two drains in flight) share one
+            # callable, so one capture, per signature.
+            with self._build_lock:
+                fn = cache.get(key)
+                if fn is None:
+                    fn = builder()
+                    cache[key] = fn
+        return fn
+
+    def _signature(self, key: tuple, run) -> _CompiledGraph:
+        """The callable of the JAX cache key ``key``, ``run`` its body."""
+        return self._get(key, lambda: _CompiledGraph(self, key, run))
+
+    def _op(self, name: str, fn, *inputs):
+        """``fn(*inputs)`` through its callable keyed by ``name`` and the
+        inputs' shapes, as a jitted op of the JAX package retraces on
+        shapes."""
+        key = (name, *(tuple(np.shape(a)) for a in inputs))
+        return self._get(key, lambda: _CompiledGraph(self, key, fn), self._op_graphs)(*inputs)
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes reserved by the memory pool the CUDA graphs share
+        (0 before the first capture)."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+class DepthPipeline(_GraphOwner):
     """The depth→point-cloud pipeline over one model of any family on one
     device (the model's own device and dtype: bf16 on CUDA for serving,
     f32 on CPU).
@@ -668,7 +741,9 @@ class DepthPipeline:
 
             model = without_blocks(model)
         self.model = model
-        self.device = self._slots[0][0]
+        # One callable per signature (:meth:`_get`); on CUDA without a mesh
+        # each is a CUDA graph, captured on first use.
+        super().__init__(self._slots[0][0], self._slots[0][0].type == "cuda" and mesh is None)
         # f32 on CUDA runs without TF32 (the module docstring).
         self.exact_f32 = wants_exact_f32(self.device, self.dtype)
         (
@@ -688,16 +763,8 @@ class DepthPipeline:
             else (12 if os.environ.get("IPC_TPU_DEPTH12") == "1" else 8)
         )
         self.host_colors_enabled = os.environ.get("IPC_TPU_HOST_COLORS", "1") != "0"
-        # One callable per signature (:meth:`_get`); on CUDA without a mesh
-        # each is a CUDA graph, captured on first use.
-        self.cuda_graphs = self.device.type == "cuda" and mesh is None
-        self._compiled: dict[tuple, _CompiledGraph] = {}
-        self._build_lock = threading.Lock()
         # Per-JpegSpec floor of the sparse capacities (select_sparse_caps).
         self._sparse_caps: dict = {}
-        self._graph_pool = None  # the memory pool the graphs share
-        self._replay_lock = threading.Lock()
-        self._replay_done: "torch.cuda.Event | None" = None
 
     @staticmethod
     def _place(model: nn.Module, mesh, pipe_microbatches: int) -> tuple:
@@ -920,18 +987,6 @@ class DepthPipeline:
 
         return _CompiledGraph(self, key, run)
 
-    def _get(self, key: tuple, builder) -> _CompiledGraph:
-        fn = self._compiled.get(key)
-        if fn is None:
-            # Concurrent submitters (two drains in flight) share one
-            # callable, so one capture, per signature.
-            with self._build_lock:
-                fn = self._compiled.get(key)
-                if fn is None:
-                    fn = builder()
-                    self._compiled[key] = fn
-        return fn
-
     @staticmethod
     def pack_payload(imgs: np.ndarray, depth_scales: np.ndarray) -> np.ndarray:
         """Fuse (B, H, W, 3) u8 images + (B,) f32 scales into the one
@@ -977,15 +1032,6 @@ class DepthPipeline:
             key, (spec.height, spec.width), options, batch, preview=want_preview,
             jpeg_spec=spec, jpeg_sparse_cap=sparse_cap, jpeg_host_colors=host_colors,
         ))
-
-    def graph_pool_bytes(self) -> int:
-        """Device bytes reserved by the memory pool the pipeline's CUDA
-        graphs share (0 before the first capture)."""
-        if self._graph_pool is None:
-            return 0
-        pool = tuple(self._graph_pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
 
     def select_sparse_caps(self, jpegs: "list[JpegInput]") -> "tuple[int, int] | None":
         """(AC, exception) capacity buckets for one hybrid batch with the
