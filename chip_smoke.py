@@ -152,9 +152,18 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     memory; the loss finite, every q/k/v weight with a nonzero gradient and
     no K1 launch; its checkpoint served by a v1 request through
     ``IPC_TPU_CHECKPOINT_DIR`` (depth unlike the random init's; 12/1/1
-    launches); one tiny trainer step card vs CPU, TF32 off; ``convert-ckpt``
-    on an HF-layout safetensors written from a random state_dict, back bit
-    for bit.
+    launches); one tiny trainer step card (its CUDA graph) vs CPU, TF32
+    off; the trainer's step as one CUDA graph a signature at full width
+    (the same model, 518², batch 2, f32, remat, one slot, lr 1e-3): a
+    graph trainer and an eager one from one weight set and one batch,
+    step 1's loss bit for bit eager's, every parameter within the larger
+    of two eager steps' spread and Adam's first-step bound, 8 steps of
+    each in turns (median wall), device time a step, busy share and
+    kernels a step in a profiler window of 3, capture seconds, pool MiB,
+    peak memory, a replay's hand-kernel launches (none), Adam's step count
+    equal to the calls; ``depth_metrics``'s graph vs its eager body bit for
+    bit, with and without a mask; ``convert-ckpt`` on an HF-layout
+    safetensors written from a random state_dict, back bit for bit.
 19. ``parallel/`` on the one card, every mesh slot ``cuda:0`` (so it
     measures correctness and the host's cost per slot, not a multi-GPU
     speed-up), each path against the port's unsharded card result: K1
@@ -172,7 +181,8 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     at (1, 6, 1370, 64) bf16, ``seq=2``, against the plain attention in
     f32; the meshed trainer (``depth-anything-v2-metric-small``, 518²,
     batch 2, f32, remat, ``data=2, model=2``, 3 steps at lr 5e-6, a batch
-    each) against the one-device trainer: the losses, which must move,
+    each; eager) against the one-device trainer (its CUDA graph): the
+    losses, which must move,
     step 1's parameters and each tensor's three-step update; the server: ``serve --mesh data=1,model=1`` in a
     child process (a non-flat PLY), ``serve --mesh data=2`` refused with
     the slot-count error, and a ``ModelManager`` on (``data=2,
@@ -2524,8 +2534,9 @@ def _step_clock(store: list):
 
 
 def _trainer_card_vs_cpu() -> None:
-    """One step of a tiny metric DA-V2 (64-wide heads) on the card and on
-    the CPU from the same weights and batch, f32, TF32 off: the loss within
+    """One step of a tiny metric DA-V2 (64-wide heads) on the card (its
+    CUDA graph) and on the CPU from the same weights and batch, f32, TF32
+    off: the loss within
     1e-4 relative, each gradient within ``TRAIN_GRAD_TOL`` of its tensor's
     max |g| (the keys' biases, zero in exact arithmetic, to 1e-6 of the
     model's), and
@@ -2559,6 +2570,10 @@ def _trainer_card_vs_cpu() -> None:
         lc, lg = float(cpu.train_step(x, y)), float(card.train_step(x, y))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    # The card's step is its signature's CUDA graph (captured, then replayed).
+    if not (card.cuda_graphs and all(fn.graph is not None for fn in card._compiled.values())
+            and len(card._compiled) == 1):
+        raise AssertionError("the card's trainer step did not run its CUDA graph")
     ref = dict(cpu.model.named_parameters())
     gmax = max(float(p.grad.abs().max()) for p in ref.values())
     worst_g = worst_p = 0.0
@@ -2582,6 +2597,153 @@ def _trainer_card_vs_cpu() -> None:
         raise AssertionError(f"the trainer step on the card disagrees with the CPU: {bad[:5]}")
 
 
+# The full-width trainer's graph against its eager body: steps of each
+# (one batch, in turns), and the profiler window's steps.
+TRAIN_GRAPH_STEPS, TRAIN_PROFILED_STEPS = 8, 3
+
+
+def _train_graph_vs_eager() -> dict:
+    """``depth-anything-v2-metric-small`` at full width (518², batch 2, f32,
+    remat, one slot), a graph trainer and an eager one (its callable runs
+    the body) from one weight set and one batch, at lr 1e-3 (so that
+    1e-3·lr stays above one f32 spacing of a parameter near 1). Step 1:
+    the graph's loss bit for bit eager's; every parameter within the larger
+    of the spread of two eager steps from the same state (the second one
+    undone by ``_warm_up``) and Adam's first-step bound on the gradient
+    difference, 1e-3·lr plus lr·|δg|·eps/(m + eps)² (tests/test_torch_
+    train.py's). Then ``TRAIN_GRAPH_STEPS`` steps of each in turns (eager,
+    graph, graph, eager), the median wall; device time a step, busy share
+    and kernels a step in a profiler window of ``TRAIN_PROFILED_STEPS``;
+    capture seconds, pool MiB, peak memory of a graph and of an eager
+    step; the hand kernels a replay launches (none: plain attention); each
+    trainer's Adam step count equal to its calls. ``depth_metrics`` on the
+    card: its graph against its eager body bit for bit, with and without a
+    mask."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, init_weights, preset
+    from image_to_pointcloud_tpu_torch.train import eval as teval
+    from image_to_pointcloud_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    lr, eps = 1e-3, 1e-8
+    sd = init_weights(build_model(preset(TRAIN_MODEL)), torch.Generator().manual_seed(0)).state_dict()
+    r = np.random.default_rng(11)
+    x = torch.from_numpy(r.normal(0, 1, (2, 518, 518, 3)).astype(np.float32)).cuda()
+    y = torch.from_numpy((r.random((2, 518, 518)) + 0.5).astype(np.float32)).cuda()
+    tcfg = TrainConfig(learning_rate=lr, loss="silog")
+    graph = Trainer(preset(TRAIN_MODEL), sd, "cuda", tcfg)
+    eager = Trainer(preset(TRAIN_MODEL), sd, "cuda", tcfg)
+    eager.cuda_graphs = False
+    calls = {"graph": 0, "eager": 0}
+    trainers = {"graph": graph, "eager": eager}
+
+    def step(mode: str) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(trainers[mode].train_step(x, y))
+        calls[mode] += 1
+        return time.perf_counter() - t0
+
+    with eager._warm_up():  # a second eager step from the same state, undone
+        eager.train_step(x, y)
+        second = {n: p.detach().clone() for n, p in eager.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    le = eager.train_step(x, y)
+    calls["eager"] += 1
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    _reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg = graph.train_step(x, y)  # the capture, then the first replay
+    calls["graph"] += 1
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak_graph = torch.cuda.max_memory_allocated() / 2**30
+    replay = _counts()
+    (fn,) = graph._compiled.values()
+    pool = graph.graph_pool_bytes() / 2**20
+
+    ref = dict(eager.model.named_parameters())
+    worst, spread, gap = 0.0, 0.0, 0.0
+    for name, p in graph.model.named_parameters():
+        q = ref[name]
+        g, rg = p.grad, q.grad
+        m = torch.where(g * rg > 0, torch.minimum(g.abs(), rg.abs()), 0.0)
+        adam = 1e-3 * lr + lr * (g - rg).abs() * eps / (m + eps) ** 2
+        err = (p - q).abs().detach()
+        eager_gap = (second[name] - q).abs().detach()
+        worst = max(worst, float((err / torch.maximum(eager_gap, adam)).max()))
+        spread, gap = max(spread, float(eager_gap.max())), max(gap, float(err.max()))
+    loss_equal = torch.equal(lg, le)
+
+    walls = {"graph": [], "eager": []}
+    for _ in range(TRAIN_GRAPH_STEPS // 2):
+        for mode in ("eager", "graph", "graph", "eager"):
+            walls[mode].append(step(mode))
+    prof = {}
+    for mode in ("eager", "graph"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_PROFILED_STEPS):
+                trainers[mode].train_step(x, y)
+                calls[mode] += 1
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        events = [e for e in pr.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e6
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+        prof[mode] = {"device_ms": busy * 1e3 / TRAIN_PROFILED_STEPS, "busy_share": busy / window,
+                      "kernels": sum(e.count for e in events) // TRAIN_PROFILED_STEPS,
+                      "window_ms": window * 1e3,
+                      "top_ms": {e.key[:80]: e.self_device_time_total / 1e3 / TRAIN_PROFILED_STEPS
+                                 for e in top}}
+    counts = {mode: {float(st["step"]) for st in tr.opt.state.values()}
+              for mode, tr in trainers.items()}
+    wall = {m: statistics.median(w) * 1e3 for m, w in walls.items()}
+
+    metrics_equal = []
+    for masked in (False, True):
+        pred = graph.predict(x[:1])
+        tgt = y[:1] * 3.0
+        mask = tgt > 1.6 if masked else None
+        got, body = teval.depth_metrics(pred, tgt, mask), teval._metrics(pred, tgt, mask)
+        metrics_equal.append(all(torch.equal(got[k], body[k]) for k in body))
+    metric_graphs = sum(f.graph is not None for f in teval._owner(graph.device)._compiled.values())
+
+    row = {"loss_equal": loss_equal, "step1_worst": worst, "eager_spread": spread,
+           "graph_gap": gap, "wall_ms": wall, "first_call_s": first_s,
+           "capture_s": fn.capture_s, "pool_mib": pool, "peak_gib_graph": peak_graph,
+           "peak_gib_eager": peak_eager, "launches_replay": replay, "profile": prof,
+           "adam_steps": {m: sorted(c) for m, c in counts.items()}, "calls": calls,
+           "metrics_equal": metrics_equal}
+    log(f"train graph vs eager {TRAIN_MODEL} 518² batch 2 f32 remat (one slot), lr {lr:g}: "
+        f"step 1 loss graph {float(lg)!r} eager {float(le)!r} bit for bit {loss_equal}; "
+        f"parameters after step 1: graph vs eager max {gap:.3e}, two eager steps max "
+        f"{spread:.3e}, worst {worst:.3f} of the rule; step wall median graph "
+        f"{wall['graph']:.3f} ms, eager {wall['eager']:.3f} ms ({TRAIN_GRAPH_STEPS} each, in "
+        f"turns); device a step graph {prof['graph']['device_ms']:.3f} ms, eager "
+        f"{prof['eager']['device_ms']:.3f} ms; busy share graph "
+        f"{prof['graph']['busy_share']:.3f}, eager {prof['eager']['busy_share']:.3f} "
+        f"(window of {TRAIN_PROFILED_STEPS}); kernels a step graph {prof['graph']['kernels']}, "
+        f"eager {prof['eager']['kernels']}; capture {fn.capture_s:.3f} s (first call "
+        f"{first_s:.3f} s); pool {pool:.1f} MiB; peak memory over the first graph call "
+        f"{peak_graph:.3f} GiB, over an eager step {peak_eager:.3f} GiB; hand-kernel launches "
+        f"a replay {replay}; Adam step counts {row['adam_steps']} after {calls} calls; "
+        f"depth_metrics graph vs eager bit for bit (no mask, mask) {metrics_equal}, "
+        f"{metric_graphs} graphs")
+    log(f"train graph step, the ten device ops of most time (ms a step): "
+        f"{json.dumps(prof['graph']['top_ms'])}")
+    if not (loss_equal and worst <= 1 and all(counts[m] == {float(calls[m])} for m in calls)
+            and not any(replay.values()) and all(metrics_equal) and metric_graphs == 2
+            and graph.cuda_graphs and len(graph._compiled) == 1):
+        raise AssertionError("the trainer's graph disagrees with its eager body")
+    return row
+
+
 def phase_train(out_dir: str, models) -> dict:
     """Fine-tuning on the card: the CLI's ``train`` on
     ``depth-anything-v2-metric-small`` at full width (518², batch 2, f32,
@@ -2589,9 +2751,10 @@ def phase_train(out_dir: str, models) -> dict:
     every q/k/v weight with a nonzero gradient, and no K1 launch (the
     trainer's model runs the plain attention). Its checkpoint then serves a
     v1 request through ``IPC_TPU_CHECKPOINT_DIR``, whose depth differs from
-    the random init's; a tiny trainer step card vs CPU; ``convert-ckpt`` on
-    an HF-layout safetensors written from a random state_dict, round trip
-    bit for bit."""
+    the random init's; a tiny trainer step card vs CPU; the full-width
+    step's graph against its eager body (:func:`_train_graph_vs_eager`);
+    ``convert-ckpt`` on an HF-layout safetensors written from a random
+    state_dict, round trip bit for bit."""
     import os
     import re
     from pathlib import Path
@@ -2664,6 +2827,8 @@ def phase_train(out_dir: str, models) -> dict:
         raise AssertionError("the fine-tuned checkpoint was not served")
 
     _trainer_card_vs_cpu()
+    graph_row = _train_graph_vs_eager()
+    _release()
 
     # convert-ckpt: an HF-layout safetensors written from a random
     # state_dict comes back bit for bit.
@@ -2680,7 +2845,8 @@ def phase_train(out_dir: str, models) -> dict:
         f"round trip bit for bit {same}")
     if not same:
         raise AssertionError("convert-ckpt did not give back the state_dict")
-    return {"served": served, "step_ms": [t * 1e3 for t in times], "peak_gib": peak}
+    return {"served": served, "step_ms": [t * 1e3 for t in times], "peak_gib": peak,
+            "graph": graph_row}
 
 
 # ---------- the mesh phase: parallel/ on one card, every slot cuda:0 ----------

@@ -526,10 +526,12 @@ _CAPTURE_STREAMS: dict = {}
 
 
 def _clone(out):
-    """Fresh copies of a callable's outputs (a tensor, None, or a tuple of
-    them)."""
+    """Fresh copies of a callable's outputs (a tensor, None, or a tuple or
+    a dict of them)."""
     if isinstance(out, tuple):
         return tuple(_clone(t) for t in out)
+    if isinstance(out, dict):
+        return {k: _clone(t) for k, t in out.items()}
     return None if out is None else out.clone()
 
 
@@ -540,14 +542,17 @@ class _CompiledGraph:
     → unpack → :meth:`DepthPipeline._forward` on each data slot, under
     :func:`exact_f32` as every forward). An input is a host numpy array
     (u8 pixels, a packed payload, f32 scalars) or a tensor on the owner's
-    device; the outputs are a tensor, None, or a tuple of them.
+    device; the outputs are a tensor, None, or a tuple or a dict of them.
 
     When its owner runs no graphs (the CPU, a mesh) a call runs ``run``
     eagerly on the inputs as tensors. On CUDA the first call captures
     ``run`` into a CUDA graph, under the owner's build lock: one eager pass
     first, on the capture stream (it makes the device constants and
     settles cuBLAS and cuDNN; its result is dropped and, like an XLA
-    compile, it counts no launch), then the capture on the same stream,
+    compile, it counts no launch), inside the owner's :meth:`_GraphOwner.
+    _warm_up` scope (where a body with side effects, the trainer's step,
+    undoes what the pass updated, so that the first call's step is its
+    replay's and no other), then the capture on the same stream,
     into the memory pool that the owner's graphs share. Each input has a
     static tensor of its own in the graph. A capture that fails raises,
     naming the signature; nothing falls back to eager. Each call (the
@@ -602,7 +607,8 @@ class _CompiledGraph:
             with torch.cuda.stream(stream), cuda.recording_launches():
                 for t, s in zip(static_in, staged):
                     t.copy_(s, non_blocking=True)
-                self.run(*static_in)  # the warm-up pass
+                with owner._warm_up():
+                    self.run(*static_in)  # the warm-up pass
             graph = torch.cuda.CUDAGraph()
             # A graph that the cyclic collector destroyed during the capture
             # (pipelines and their graphs hold each other) would free its
@@ -649,7 +655,8 @@ class _GraphOwner:
     ``_compiled``, the shape-keyed ones of its ops (:meth:`_op`), and what
     their CUDA graphs share: the build lock, the memory pool, the replay
     lock and the last replay's event. ``cuda_graphs`` says whether the
-    callables capture (on CUDA) or run eagerly."""
+    callables capture (on CUDA) or run eagerly. The trainer and
+    ``train/eval.py``'s ``depth_metrics`` own their graphs the same way."""
 
     def __init__(self, device: torch.device, cuda_graphs: bool):
         self.device = device
@@ -673,6 +680,12 @@ class _GraphOwner:
                     fn = builder()
                     cache[key] = fn
         return fn
+
+    def _warm_up(self):
+        """The scope of a capture's eager warm-up pass: nothing around it
+        here; an owner whose bodies update its state in place (the
+        trainer) undoes the pass's updates when the scope closes."""
+        return contextlib.nullcontext()
 
     def _signature(self, key: tuple, run) -> _CompiledGraph:
         """The callable of the JAX cache key ``key``, ``run`` its body."""

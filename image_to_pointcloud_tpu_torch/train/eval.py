@@ -10,13 +10,35 @@ fine-tuned checkpoints against ground truth:
   RMSElog  √mean (log d − log d*)²
   SILog    scale-invariant log error (Eigen et al.)
   δ<1.25ᵏ  fraction with max(d/d*, d*/d) < 1.25ᵏ, k ∈ {1,2,3}
+
+As the JAX package jits it, on CUDA each signature (the shapes and
+dtypes of pred and target, and whether a mask is given: the jit's pytree
+structure) is one CUDA graph, held by a module-level graph owner per
+device (``pipeline/graph.py``'s ``_GraphOwner``); on the CPU the same
+callable runs eagerly.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from image_to_pointcloud_tpu_torch.pipeline.graph import _GraphOwner
+
 __all__ = ["depth_metrics"]
+
+_OWNERS: dict[torch.device, _GraphOwner] = {}
+_OWNERS_LOCK = threading.Lock()
+
+
+def _owner(device: torch.device) -> _GraphOwner:
+    """The graph owner of ``device`` (made at its first use)."""
+    with _OWNERS_LOCK:
+        owner = _OWNERS.get(device)
+        if owner is None:
+            owner = _OWNERS[device] = _GraphOwner(device, device.type == "cuda")
+        return owner
 
 
 @torch.no_grad()
@@ -29,6 +51,14 @@ def depth_metrics(
       pred/target: (..., H, W) positive depths.
       mask: optional boolean validity mask (same shape).
     """
+    key = ("depth_metrics", tuple(pred.shape), pred.dtype, tuple(target.shape), target.dtype,
+           mask is not None)
+    fn = _owner(pred.device)._signature(key, _metrics)
+    return fn(pred, target) if mask is None else fn(pred, target, mask)
+
+
+def _metrics(pred, target, mask=None) -> dict[str, torch.Tensor]:
+    """:func:`depth_metrics`'s body."""
     valid = target > 0
     if mask is not None:
         valid = valid & mask

@@ -27,17 +27,33 @@ The model is f32 with ``use_flash_attention=False`` (K1 has no
 backward), and ``remat`` checkpoints each DINOv2 or ViT block
 (``torch.utils.checkpoint``, ``use_reentrant=False``); BEiT's blocks
 train without it, as in the JAX package.
+
+As the JAX package jits the step (``params`` and ``opt_state`` donated),
+the port captures it: on a one-slot CUDA mesh each signature (pixels'
+shape and dtype, the target's shape, the mask's) is one CUDA graph
+(``pipeline/graph.py``'s ``_CompiledGraph``) of the whole step, in place
+on the trainer's parameters, gradients and optimizer state. The warm-up
+pass before a capture is undone (:meth:`Trainer._warm_up`), so each call
+takes one step, the first call's too. The gradients are None when the
+capture starts, so the captured backward makes them in the graph's pool
+(PyTorch's whole-network capture); after each replay every ``p.grad`` is
+that signature's, the step's clipped gradient. AdamW on CUDA is
+``capturable`` (its step count on the device), eagerly too, so that the
+graph and the eager body do the same arithmetic; the CPU keeps the
+default AdamW. On the CPU and on meshes of more slots the step runs
+eagerly through the same callable.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import torch
 
 from image_to_pointcloud_tpu_torch.models.depth_anything import ModelConfig, build_model
-from image_to_pointcloud_tpu_torch.pipeline.graph import exact_f32, wants_exact_f32
+from image_to_pointcloud_tpu_torch.pipeline.graph import _GraphOwner, exact_f32, wants_exact_f32
 from image_to_pointcloud_tpu_torch.train.losses import (
     affine_invariant_loss,
     gradient_matching_loss,
@@ -81,13 +97,17 @@ def train_model_config(model_cfg: ModelConfig, remat: bool) -> ModelConfig:
     )
 
 
-class Trainer:
+class Trainer(_GraphOwner):
     """Owns the f32 model, the optimizer state and the train step, on
     ``mesh`` (default: the one slot ``device``; ``device`` is then the
     first slot's). ``state_dict`` may come placed (``restore_params(mesh=)``).
     Without model slots :attr:`model` is the one-device module, whose
     parameters are the ones trained (in its order, so an optimizer state
-    resumes); with them it is None (the blocks are sharded: :attr:`net`)."""
+    resumes); with them it is None (the blocks are sharded: :attr:`net`).
+    ``cuda_graphs`` (a one-slot CUDA mesh) says whether the step replays
+    a CUDA graph a signature, held in ``_compiled`` under the JAX jit's
+    retrace key; an optimizer state loaded later (``opt.load_state_dict``)
+    drops the graphs, which held the old state's tensors."""
 
     def __init__(
         self,
@@ -111,7 +131,8 @@ class Trainer:
             mesh = make_mesh(data=1, devices=visible_devices(device)[:1])
         self.cfg = cfg
         self.mesh = mesh
-        self.device = mesh.device()
+        first = mesh.device()
+        super().__init__(first, first.type == "cuda" and mesh.devices.size == 1)
         # The model is f32: on CUDA its forward and backward run without
         # TF32 (``pipeline/graph.py``).
         self.exact_f32 = wants_exact_f32(self.device, torch.float32)
@@ -129,13 +150,35 @@ class Trainer:
         else:
             self.model = None
             self.params = [p for p in self.net.parameters() if p.requires_grad]
+        # The zero gradient of each parameter the loss does not reach, made
+        # once; and each signature's gradients (the graph's, in its pool).
+        self._zero_grads: dict[int, torch.Tensor] = {}
+        self._grads: dict[tuple, list] = {}
         self.opt = torch.optim.AdamW(
             self.params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=cfg.weight_decay,
+            weight_decay=cfg.weight_decay, capturable=self.device.type == "cuda",
         )
+        # An eager step of a capturable AdamW is meant here (a capture's
+        # warm-up, a mesh): AdamW's warning that it impairs speed is not.
+        self.opt._warned_capturable_if_run_uncaptured = True
+        self.opt.register_load_state_dict_post_hook(self._loaded)
         if opt_state is not None:
             self.opt.load_state_dict(opt_state)
         self._loss = _loss_fn_for(cfg)
+
+    def _loaded(self, opt) -> None:
+        """After ``opt.load_state_dict``: the trainer's AdamW settings (a
+        state saved elsewhere brings its own ``capturable``), each step
+        count on its parameter's device where capturable, and no graph
+        (each replayed into the state tensors just replaced)."""
+        capturable = self.device.type == "cuda"
+        for group in opt.param_groups:
+            group["capturable"] = capturable
+        if capturable:
+            for p, st in opt.state.items():
+                st["step"] = torch.as_tensor(st["step"], dtype=torch.float32).to(p.device)
+        self._compiled.clear()
+        self._grads.clear()
 
     def _clip_by_global_norm(self) -> None:
         grads = [p.grad for p in self.params]
@@ -168,23 +211,74 @@ class Trainer:
 
     def train_step(self, pixels, target, mask=None) -> torch.Tensor:
         """One optimization step on (B, H, W, 3) pixels and (B, H, W) depth
-        targets (mask: all valid by default); returns the loss (0-d,
-        detached)."""
+        targets (mask: all valid by default, made here as JAX makes it, so
+        that no mask is no signature of its own); returns the loss (0-d,
+        detached). The step is the callable of its signature
+        (:meth:`_step`, eagerly or as its CUDA graph)."""
+        from image_to_pointcloud_tpu_torch.parallel.sharding import Sharded
+
         target = self._global(target, torch.float32)
         if mask is None:
             mask = torch.ones(target.shape, dtype=torch.bool, device=self.device)
         else:
             mask = self._global(mask, torch.bool)
-        self.opt.zero_grad(set_to_none=True)
+        if isinstance(pixels, Sharded) and self.cuda_graphs:
+            pixels = pixels.gather(self.device)  # the one slot's tensor
+        elif not isinstance(pixels, (Sharded, torch.Tensor)):
+            pixels = torch.as_tensor(pixels)
+        if isinstance(pixels, Sharded):  # its rows over the data slots
+            rows = pixels.data_shards()
+            shape, dtype = (sum(r.shape[0] for r in rows), *rows[0].shape[1:]), rows[0].dtype
+        else:
+            shape, dtype = tuple(pixels.shape), pixels.dtype
+        key = ("train", shape, dtype, tuple(target.shape), tuple(mask.shape))
+        loss = self._signature(key, self._step)(pixels, target, mask)
+        if self.cuda_graphs:  # the gradients of the signature just replayed
+            grads = self._grads.setdefault(key, [p.grad for p in self.params])
+            for p, g in zip(self.params, grads):
+                p.grad = g
+        return loss
+
+    def _step(self, pixels, target, mask) -> torch.Tensor:
+        """The step's body: zero gradients, the forward, the loss and the
+        backward under :func:`exact_f32`, the clip, AdamW; returns the
+        loss (0-d, detached)."""
+        self.opt.zero_grad(set_to_none=True)  # a no-op in a capture (:meth:`_warm_up`)
         with exact_f32(self.exact_f32):  # the forward, the loss and the backward
             loss = self._loss(self._predict(pixels), target, mask)
             loss.backward()
         for p in self.params:
             if p.grad is None:
-                p.grad = torch.zeros_like(p)
+                z = self._zero_grads.get(id(p))
+                if z is None:
+                    z = self._zero_grads[id(p)] = torch.zeros_like(p)
+                p.grad = z
         self._clip_by_global_norm()
         self.opt.step()
         return loss.detach()
+
+    @contextlib.contextmanager
+    def _warm_up(self):
+        """Around a capture's warm-up pass, a real step: the parameters and
+        AdamW's state come back as they were (a state the pass made, AdamW's
+        lazy init, back to its zeros), and every gradient goes to None, so
+        that the captured backward makes them in the graph's pool."""
+        with torch.no_grad():
+            params = [p.clone() for p in self.params]
+            state = {p: {k: v.clone() for k, v in st.items()} for p, st in self.opt.state.items()}
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, saved in zip(self.params, params):
+                    p.copy_(saved)
+                for p, st in self.opt.state.items():
+                    for k, v in st.items():
+                        if p in state:
+                            v.copy_(state[p][k])
+                        else:
+                            v.zero_()
+            self.opt.zero_grad(set_to_none=True)
 
     def state_dict(self) -> dict[str, torch.Tensor]:
         """The model's ``state_dict`` in the one-device layout."""
