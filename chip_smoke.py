@@ -168,27 +168,36 @@ Phases (any failure exits non-zero, and the result lines are not printed):
     measures correctness and the host's cost per slot, not a multi-GPU
     speed-up), each path against the port's unsharded card result: K1
     at the TP slots' shapes (1, 3, 1370, 64) and (1, 8, 577, 64) and the
-    full-head ones, held against the plain attention and timed; TP (``data=1, model=2``) through the
-    served ``DepthPipeline`` for DA-V2-Small and ``dpt-large`` at full
-    width (raw output within ``FULL_WIDTH_TOL``, the normalized depth
-    within ``MESH_NORM_TOL``, K1 exactly 24 and 48 a request); int8 TP (a
-    row-parallel ``QuantLinear`` at DA-V2's fc2 and the int8 DA-V2
-    encoder at ``model=2``, bit for bit); DP (``data=2``, a batch of 1 and
-    of 3, padded, against the unmeshed pipeline on each slot's rows:
-    equal kept counts, points within 2e-4, K2 and K3 once per data slot);
-    GPipe (``pipe=4``, M=4, batch 4: DA-V2 and ``dpt-large`` at full
-    width, a 4-block ZoeDepth tiny); sequence-sharded and ring attention
-    at (1, 6, 1370, 64) bf16, ``seq=2``, against the plain attention in
-    f32; the meshed trainer (``depth-anything-v2-metric-small``, 518²,
-    batch 2, f32, remat, ``data=2, model=2``, 3 steps at lr 5e-6, a batch
-    each; eager) against the one-device trainer (its CUDA graph): the
-    losses, which must move,
-    step 1's parameters and each tensor's three-step update; the server: ``serve --mesh data=1,model=1`` in a
+    full-head ones, held against the plain attention and timed; TP
+    (``data=1, model=2``) through the served ``DepthPipeline`` for
+    DA-V2-Small and ``dpt-large`` at full width (raw output within
+    ``FULL_WIDTH_TOL``, the normalized depth within ``MESH_NORM_TOL``, K1
+    exactly 24 and 48 a request); int8 TP (a row-parallel ``QuantLinear``
+    at DA-V2's fc2 and the int8 DA-V2 encoder at ``model=2``, bit for bit,
+    and the int8 TP pipeline's replay the unsharded int8 pipeline's, byte
+    for byte); DP (``data=2``, a batch of 1 and of 3, padded, against the
+    unmeshed pipeline on each slot's rows: equal kept counts, points
+    within 2e-4, K2 and K3 once per data slot); GPipe (``pipe=4``, M=4,
+    batch 4: DA-V2 and ``dpt-large`` at full width, a 4-block ZoeDepth
+    tiny); each of these pipelines as CUDA graphs, one a signature and
+    data slot (``_mesh_graph``): every replay byte for byte its eager
+    body, its launches the eager body's, capture seconds, pool MiB, graph
+    and eager walls in turns; sequence-sharded and ring attention at (1,
+    6, 1370, 64) bf16, ``seq=2``, against the plain attention in f32; the
+    meshed trainer (``depth-anything-v2-metric-small``, 518², batch 2,
+    f32, remat, ``data=2, model=2``, 3 steps at lr 5e-6, a batch each) as
+    its CUDA graph, beside an eager meshed trainer (step 1's loss bit for
+    bit) and against the one-device trainer (its CUDA graph): the losses,
+    which must move, step 1's parameters and each tensor's three-step
+    update; then its step graph against eager in turns, busy share,
+    capture and pool; the server: ``serve --mesh data=1,model=1`` in a
     child process (a non-flat PLY), ``serve --mesh data=2`` refused with
-    the slot-count error, and a ``ModelManager`` on (``data=2,
-    model=2``) behind the v1 app, three PNG requests of exactly 48 K1, 2
-    K2 and 2 K3. Host walls of a TP, a DP and a GPipe request beside the
-    unmeshed ones.
+    the slot-count error, the one-slot mesh's pipeline in this process as
+    its graph, and a ``ModelManager`` on (``data=2, model=2``): its
+    pipeline as graphs, then behind the v1 app three PNG requests of
+    exactly 48 K1, 2 K2 and 2 K3; each mesh's submit+collect of a lone
+    request, graph against eager in turns. Host walls of a TP, a DP and a
+    GPipe request (graphs) beside the unmeshed ones.
 20. the device's busy share of each of phase 15's runs (eager and graph,
     batch 1 and 4), as ``tools/profile_torch_pipeline.py`` measures it:
     CUDA kernel time in a ``torch.profiler`` window over the window's wall.
@@ -2200,21 +2209,29 @@ def phase_timing(models, int8_models, f32_models, reps: int = 20) -> dict:
         pipe = managers[kind].get(name)
         for batch in (1, 4):
             modes = _timed_runs(pipe, ingest, batch)
-            for fn in modes.values():
-                fn()  # warm-up (the graph's capture)
-            walls = {"eager": [], "graph": []}
-            for _ in range(max(4, reps // batch // 2)):
-                for mode in ("eager", "graph", "graph", "eager"):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    modes[mode]()
-                    walls[mode].append(time.perf_counter() - t0)
-            per_image = {m: statistics.median(w) * 1e3 / batch for m, w in walls.items()}
+            rounds = max(4, reps // batch // 2)
+            per_image = _per_image_in_turns(modes, batch, rounds)
             timed[(label, batch)] = {"runs": modes, "ms_per_image": per_image}
             log(f"submit+collect 518x518 {label} batch {batch}: per image eager "
                 f"{per_image['eager']:.3f} ms, graph {per_image['graph']:.3f} ms "
-                f"({len(walls['graph'])} each, in turns)")
+                f"({2 * rounds} each, in turns)")
     return timed
+
+
+def _per_image_in_turns(modes: dict, batch: int, rounds: int) -> dict:
+    """The median wall per image of the ``graph`` and ``eager`` modes of
+    one batch, after a warm-up call of each (the graph's capture), in
+    ``rounds`` turns of eager, graph, graph, eager."""
+    for fn in modes.values():
+        fn()
+    walls = {"eager": [], "graph": []}
+    for _ in range(rounds):
+        for mode in ("eager", "graph", "graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            modes[mode]()
+            walls[mode].append(time.perf_counter() - t0)
+    return {m: statistics.median(w) * 1e3 / batch for m, w in walls.items()}
 
 
 def phase_busy_share(timed: dict, iters: int = 5) -> dict:
@@ -2602,6 +2619,27 @@ def _trainer_card_vs_cpu() -> None:
 TRAIN_GRAPH_STEPS, TRAIN_PROFILED_STEPS = 8, 3
 
 
+def _profiled_steps(step, n: int = TRAIN_PROFILED_STEPS) -> dict:
+    """``n`` calls of ``step`` in a profiler window: the device time a
+    step, the busy share (device time over the window's wall), kernels a
+    step, and the ten device ops of most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    events = [e for e in pr.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    return {"device_ms": busy * 1e3 / n, "busy_share": busy / window,
+            "kernels": sum(e.count for e in events) // n, "window_ms": window * 1e3,
+            "top_ms": {e.key[:80]: e.self_device_time_total / 1e3 / n for e in top}}
+
+
 def _train_graph_vs_eager() -> dict:
     """``depth-anything-v2-metric-small`` at full width (518², batch 2, f32,
     remat, one slot), a graph trainer and an eager one (its callable runs
@@ -2619,8 +2657,6 @@ def _train_graph_vs_eager() -> dict:
     trainer's Adam step count equal to its calls. ``depth_metrics`` on the
     card: its graph against its eager body bit for bit, with and without a
     mask."""
-    from torch.profiler import ProfilerActivity, profile
-
     from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, init_weights, preset
     from image_to_pointcloud_tpu_torch.train import eval as teval
     from image_to_pointcloud_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -2685,22 +2721,8 @@ def _train_graph_vs_eager() -> dict:
             walls[mode].append(step(mode))
     prof = {}
     for mode in ("eager", "graph"):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(TRAIN_PROFILED_STEPS):
-                trainers[mode].train_step(x, y)
-                calls[mode] += 1
-            torch.cuda.synchronize()
-            window = time.perf_counter() - t0
-        events = [e for e in pr.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in events) / 1e6
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-        prof[mode] = {"device_ms": busy * 1e3 / TRAIN_PROFILED_STEPS, "busy_share": busy / window,
-                      "kernels": sum(e.count for e in events) // TRAIN_PROFILED_STEPS,
-                      "window_ms": window * 1e3,
-                      "top_ms": {e.key[:80]: e.self_device_time_total / 1e3 / TRAIN_PROFILED_STEPS
-                                 for e in top}}
+        prof[mode] = _profiled_steps(lambda: trainers[mode].train_step(x, y))
+        calls[mode] += TRAIN_PROFILED_STEPS
     counts = {mode: {float(st["step"]) for st in tr.opt.state.values()}
               for mode, tr in trainers.items()}
     wall = {m: statistics.median(w) * 1e3 for m, w in walls.items()}
@@ -2918,6 +2940,53 @@ def _host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _mesh_graph(label: str, pipe, frames: list, expected: dict) -> dict:
+    """One meshed signature as CUDA graphs (one a data slot, on its
+    device; the batch padded to the data slots): the capture of every
+    slot's graph (timed; the pool after), a replay against the signature's
+    eager body (``fn.run``: every data slot, then the gather) on the same
+    payload, byte for byte, the launches of a replay equal to the eager
+    body's and to ``expected``, and the wall of a call, graph and eager,
+    in turns (6 each)."""
+    from image_to_pointcloud_tpu_torch.pipeline.graph import PipelineOptions
+
+    imgs = np.stack(frames)
+    pad = pipe._data_pad(len(imgs))
+    if pad:
+        imgs = np.concatenate([imgs, imgs[-1:].repeat(pad, 0)])
+    payload = pipe.pack_payload(imgs, np.full((len(imgs),), 15.0, np.float32))
+    fn = pipe.compiled_graph(len(imgs), imgs.shape[1:3], PipelineOptions(), True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(payload)  # every data slot's capture, then a replay
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _reset()
+    out, prev = fn(payload)
+    torch.cuda.synchronize()
+    replay = _counts()
+    _reset()
+    eout, eprev = fn.run(torch.from_numpy(payload))
+    torch.cuda.synchronize()
+    eager = _counts()
+    same = torch.equal(out, eout) and torch.equal(prev, eprev)
+    parts = getattr(fn, "slots", [fn])  # a meshed signature's graph of each data slot
+    wall = _in_turns({"graph": lambda: fn(payload),
+                      "eager": lambda: fn.run(torch.from_numpy(payload))})
+    row = {"batch": len(imgs), "graphs": len(parts), "capture_s": fn.capture_s,
+           "first_call_s": first_s, "pool_mib": pipe.graph_pool_bytes() / 2**20,
+           "launches_replay": replay, "launches_eager": eager, "equal": same, "wall_ms": wall}
+    log(f"mesh graph {label} batch {len(imgs)}: {len(parts)} graph(s), one a data slot; replay "
+        f"vs eager body bytes equal {same}; launches a replay {replay}, eager {eager}; capture "
+        f"{fn.capture_s:.3f} s (first call {first_s:.3f} s); pool {row['pool_mib']:.1f} MiB; wall "
+        f"a call graph {wall['graph']:.3f} ms, eager {wall['eager']:.3f} ms (6 each, in turns)")
+    if not (pipe.cuda_graphs and same and replay == eager == expected
+            and all(part.graph is not None for part in parts)):
+        raise AssertionError(f"the meshed graph {label} disagrees with its eager body "
+                             f"(launches {replay}, expected {expected})")
+    return row
+
+
 def _mesh_tp(models, name: str, k1_blocks: int) -> dict:
     """One 518² frame through the served DepthPipeline on (data=1,
     model=2) against the unsharded one, same weights: the raw output
@@ -2935,6 +3004,8 @@ def _mesh_tp(models, name: str, k1_blocks: int) -> dict:
     _reset()
     raw_tp, res_tp = _raw_run(tp, [frame])
     counts = _counts()
+    expected = {"flash_attention": 2 * k1_blocks, "grid_knn": 1, "unproject": 1}
+    graph = _mesh_graph(f"TP {name} (data=1, model=2)", tp, [frame], expected)
     err = _max_norm_err(raw_tp, raw_plain)
     gap = float((normalize_depth(raw_tp[0]) - normalize_depth(raw_plain[0])).abs().max())
     xyz = res_tp[0].points
@@ -2945,12 +3016,13 @@ def _mesh_tp(models, name: str, k1_blocks: int) -> dict:
         f"error vs unsharded {err:.5f} (tol {FULL_WIDTH_TOL:g}); normalized depth max gap "
         f"{gap:.5f} (tol {MESH_NORM_TOL:g}); points {len(xyz)} (unsharded "
         f"{len(res_plain[0].points)}), {len(np.unique(xyz[:, 2]))} distinct z; launches "
-        f"{counts}; host wall a request: TP {ms_tp:.2f} ms, unsharded {ms_plain:.2f} ms")
-    expected = {"flash_attention": 2 * k1_blocks, "grid_knn": 1, "unproject": 1}
+        f"(eager) {counts}; host wall a request (graphs): TP {ms_tp:.2f} ms, unsharded "
+        f"{ms_plain:.2f} ms")
     if not (err <= FULL_WIDTH_TOL and gap <= MESH_NORM_TOL and counts == expected
             and len(np.unique(xyz[:, 2])) > 1):
         raise AssertionError(f"the TP mesh path of {name} failed (expected launches {expected})")
-    return {"err": err, "gap": gap, "launches": counts, "ms": ms_tp, "plain_ms": ms_plain}
+    return {"err": err, "gap": gap, "launches": graph["launches_replay"], "ms": ms_tp,
+            "plain_ms": ms_plain, "graph": graph}
 
 
 def _mesh_k1_tp_times() -> dict:
@@ -2975,10 +3047,13 @@ def _mesh_k1_tp_times() -> dict:
     return {"ms": out, "max_abs_err": errs}
 
 
-def _mesh_int8(int8_models) -> None:
+def _mesh_int8(int8_models) -> dict:
     """One row-parallel QuantLinear (DA-V2's fc2, 1536 → 384, 1370 tokens)
     over two slots, and the int8 DA-V2 encoder at model=2, each against
-    the unsharded int8 on the card, bit for bit."""
+    the unsharded int8 on the card, bit for bit; then the served int8
+    DA-V2 through a (data=1, model=2) pipeline as its graph
+    (:func:`_mesh_graph`), whose replay must equal the unsharded int8
+    pipeline's replay on the same payload, byte for byte."""
     from image_to_pointcloud_tpu_torch.models.quantize import QuantLinear, quantize_dense_params
     from image_to_pointcloud_tpu_torch.parallel.sharding import (
         MeshedModel,
@@ -2986,6 +3061,7 @@ def _mesh_int8(int8_models) -> None:
         row_parallel,
         shard_params,
     )
+    from image_to_pointcloud_tpu_torch.pipeline.graph import DepthPipeline, PipelineOptions
 
     gen = torch.Generator().manual_seed(3)
     full = QuantLinear(1536, 384)
@@ -3005,10 +3081,22 @@ def _mesh_int8(int8_models) -> None:
         model = int8_models.get("depth-anything-v2").model
         px = torch.randn(1, 518, 518, 3, generator=gen).cuda()
         same_enc = torch.equal(MeshedModel(model, mesh)(px), model(px))
+    served = int8_models.get("depth-anything-v2")
+    tp = DepthPipeline(served.model, model_target=served.model_target, mesh=mesh)
+    frame = _frame(518, 518, 6)
+    graph = _mesh_graph("int8 TP DA-V2 (data=1, model=2)", tp, [frame],
+                        {"flash_attention": 24, "grid_knn": 1, "unproject": 1})
+    payload = tp.pack_payload(frame[None], np.full((1,), 15.0, np.float32))
+    opts = PipelineOptions()
+    got = tp.compiled_graph(1, (518, 518), opts, True)(payload)
+    ref = served.compiled_graph(1, (518, 518), opts, True)(payload)
+    same_pipe = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     log(f"mesh int8 TP: row-parallel QuantLinear (1, 1370, 1536) -> 384 over 2 slots bit for bit "
-        f"{same_lin}; int8 DA-V2-Small encoder at model=2 bit for bit {same_enc}")
-    if not (same_lin and same_enc):
+        f"{same_lin}; int8 DA-V2-Small encoder at model=2 bit for bit {same_enc}; the int8 TP "
+        f"pipeline's replay vs the unsharded int8 pipeline's, bytes equal {same_pipe}")
+    if not (same_lin and same_enc and same_pipe):
         raise AssertionError("the int8 TP path differs from the unsharded int8 on the card")
+    return graph
 
 
 def _mesh_dp(models) -> dict:
@@ -3023,8 +3111,10 @@ def _mesh_dp(models) -> dict:
     dp = DepthPipeline(plain.model, model_target=plain.model_target,
                        mesh=make_mesh(data=2, devices=_slots(2)))
     frames = [_frame(518, 518, 20 + i) for i in range(3)]
-    worst, out = 0.0, {}
+    worst, out, graphs = 0.0, {}, {}
     for n, groups in [(1, [[0]]), (3, [[0, 1], [2, 2]])]:
+        graphs[n] = _mesh_graph(f"DP DA-V2 (data=2) of {n}", dp, frames[:n],
+                                {"flash_attention": 24, "grid_knn": 2, "unproject": 2})
         _reset()
         got = dp.run_batch(np.stack(frames[:n]), depth_scales=15.0)
         counts = _counts()
@@ -3041,10 +3131,11 @@ def _mesh_dp(models) -> dict:
     ms_dp = _host_ms(lambda: dp.run(frames[0]))
     ms_plain = _host_ms(lambda: plain.run(frames[0]))
     log(f"mesh DP: worst point difference {worst:.3e} (tol 2e-4); host wall of a lone request "
-        f"DP=2 {ms_dp:.2f} ms, unmeshed {ms_plain:.2f} ms")
+        f"(graphs) DP=2 {ms_dp:.2f} ms, unmeshed {ms_plain:.2f} ms")
     if worst > 2e-4:
         raise AssertionError("the DP path's points differ from the unmeshed ones")
-    return {"launches": out, "ms": ms_dp, "plain_ms": ms_plain, "worst": worst}
+    return {"launches": out, "ms": ms_dp, "plain_ms": ms_plain, "worst": worst,
+            "graph": graphs}
 
 
 def _mesh_gpipe(models) -> dict:
@@ -3073,11 +3164,15 @@ def _mesh_gpipe(models) -> dict:
         err = _max_norm_err(raw_pp, raw_plain)
         per_request = {k: c / 4 for k, c in counts.items()}
         log(f"mesh GPipe {name} (pipe=4, M=4, batch 4): raw output max-normalized error vs "
-            f"unmeshed {err:.5f} (tol {FULL_WIDTH_TOL:g}); launches {counts} ({per_request} a "
-            f"request); batch wall {wall:.1f} ms; {len(np.unique(res[0].points[:, 2]))} distinct z")
+            f"unmeshed {err:.5f} (tol {FULL_WIDTH_TOL:g}); launches (eager) {counts} "
+            f"({per_request} a request); eager batch wall {wall:.1f} ms; "
+            f"{len(np.unique(res[0].points[:, 2]))} distinct z")
         if err > FULL_WIDTH_TOL or counts["flash_attention"] != 4 * k1 or counts["unproject"] != 1:
             raise AssertionError(f"the GPipe path of {name} failed")
-        out[name] = {"err": err, "launches": counts, "batch_ms": wall}
+        graph = _mesh_graph(f"GPipe {name} (pipe=4, M=4)", pp, frames,
+                            {"flash_attention": 4 * k1, "grid_knn": 1, "unproject": 1})
+        out[name] = {"err": err, "launches": graph["launches_replay"], "batch_ms": wall,
+                     "graph": graph}
     import dataclasses
 
     zoe = _tiny_configs()["ZoeDepth"][0]  # 4 blocks, one tap a stage
@@ -3121,23 +3216,31 @@ def _mesh_seq_attention() -> dict:
 def _mesh_train() -> dict:
     """``depth-anything-v2-metric-small`` at full width (518², batch 2,
     f32, remat) on (data=2, model=2), four slots of one card, 3 steps at
-    the fine-tuning rate 5e-6, against the one-device Trainer from the
-    same state, TF32 off. The loss of the one device must move at every
-    step by more than the agreement bound (a model that stops learning
-    would make steps 2 and 3 check nothing); each meshed loss within 1e-4
-    relative of the one device's (phase 18's card-vs-CPU bound). After
-    step 1 every parameter within Adam's first-step rule: 1e-3·lr plus
-    what the gradient difference carries through the step (phase 18's)
-    plus one f32 spacing of the parameter (the two updates round apart;
-    at lr 5e-6 that spacing, 1.2e-7 near 1, exceeds 1e-3·lr). After step 3
-    the update over the three steps, p3 − p0 of every parameter, within
-    MESH_TRAIN_UPDATE_TOL of the one device's in relative L2 norm (later
-    Adam steps divide by the gradient's own running size, so f32 noise on
-    a near-zero gradient flips an element's step: an elementwise rule, or
-    one per small tensor, fails on that; the DP sum and Adam's moments act
-    on every tensor). The keys' biases, whose gradient is zero in exact
-    arithmetic and whose updates are Adam-normalized noise, are left out;
-    each tensor's gap is printed."""
+    the fine-tuning rate 5e-6, against the one-device Trainer (its graph)
+    from the same state, TF32 off. The meshed trainer replays one CUDA
+    graph a step signature; an eager meshed trainer (its callable runs
+    the body) steps beside it from the same state, and step 1's loss of
+    the graph must be the eager one's bit for bit. The loss of the one
+    device must move at every step by more than the agreement bound (a
+    model that stops learning would make steps 2 and 3 check nothing);
+    each meshed loss within 1e-4 relative of the one device's (phase 18's
+    card-vs-CPU bound). After step 1 every parameter within Adam's
+    first-step rule: 1e-3·lr plus what the gradient difference carries
+    through the step (phase 18's) plus one f32 spacing of the parameter
+    (the two updates round apart; at lr 5e-6 that spacing, 1.2e-7 near 1,
+    exceeds 1e-3·lr). After step 3 the update over the three steps, p3 −
+    p0 of every parameter, within MESH_TRAIN_UPDATE_TOL of the one
+    device's in relative L2 norm (later Adam steps divide by the
+    gradient's own running size, so f32 noise on a near-zero gradient
+    flips an element's step: an elementwise rule, or one per small tensor,
+    fails on that; the DP sum and Adam's moments act on every tensor).
+    The keys' biases, whose gradient is zero in exact arithmetic and whose
+    updates are Adam-normalized noise, are left out; each tensor's gap is
+    printed, and the eager meshed trainer's update gap beside the
+    graph's. Then the meshed step, graph against eager, on a batch already
+    on the card (as phase 18's): the wall in turns (4 each), device time,
+    busy share and kernels a step in a profiler window of 3, the capture
+    and the pool."""
     from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, init_weights, preset
     from image_to_pointcloud_tpu_torch.parallel.sharding import make_mesh
     from image_to_pointcloud_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -3152,31 +3255,62 @@ def _mesh_train() -> dict:
     tcfg = TrainConfig(learning_rate=lr, loss="silog")
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    res = {}
+    res = {kind: {"losses": [], "step_ms": [], "params": []} for kind in ("one", "mesh", "eager")}
+    grads = {}
+
+    def take(kind: str, tr, step: int) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[kind]["losses"].append(tr.train_step(x[step], y[step]))
+        torch.cuda.synchronize()
+        res[kind]["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if step == 0 and kind != "eager":  # the elementwise rule is Adam's first step's
+            grads[kind] = _named_grads(tr)
+        if step in (0, 2):
+            res[kind]["params"].append({k: v.detach().clone() for k, v in tr.state_dict().items()})
+
     try:
-        grads = {}
-        for kind in ("one", "mesh"):
-            torch.cuda.reset_peak_memory_stats()
-            mesh = make_mesh(data=2, model=2, devices=_slots(4)) if kind == "mesh" else None
-            tr = Trainer(preset(TRAIN_MODEL), sd, "cuda", tcfg, mesh=mesh)
-            losses, times, params = [], [], []
-            for step in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        one = Trainer(preset(TRAIN_MODEL), sd, "cuda", tcfg)
+        for step in range(3):
+            take("one", one, step)
+        res["one"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del one
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_mesh(data=2, model=2, devices=_slots(4))
+        meshed = {"mesh": Trainer(preset(TRAIN_MODEL), sd, "cuda", tcfg, mesh=mesh),
+                  "eager": Trainer(preset(TRAIN_MODEL), sd, "cuda", tcfg, mesh=mesh)}
+        meshed["eager"].cuda_graphs = False
+        for step in range(3):
+            for kind, tr in meshed.items():
+                take(kind, tr, step)
+        res["mesh"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30  # both meshed
+        graph, eager = meshed["mesh"], meshed["eager"]
+        # The timed steps take a batch already on the card, as phase 18's
+        # do: a host batch adds its pinned copy to each step.
+        xd, yd = torch.from_numpy(x[0]).cuda(), torch.from_numpy(y[0]).cuda()
+        (fn,) = graph._compiled.values()  # the host batch's signature: the same key
+        walls = {"graph": [], "eager": []}
+        for _ in range(2):
+            for mode in ("eager", "graph", "graph", "eager"):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                losses.append(float(tr.train_step(x[step], y[step])))
-                times.append((time.perf_counter() - t0) * 1e3)
-                if step == 0:  # the elementwise rule is Adam's first step's
-                    grads[kind] = _named_grads(tr)
-                if step in (0, 2):
-                    params.append({k: v.detach().clone() for k, v in tr.state_dict().items()})
-            res[kind] = {"losses": losses, "step_ms": times,
-                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                         "params": params}
-            del tr
+                meshed["mesh" if mode == "graph" else "eager"].train_step(xd, yd)
+                torch.cuda.synchronize()
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+        prof = {mode: _profiled_steps(lambda: tr.train_step(xd, yd))
+                for mode, tr in (("graph", graph), ("eager", eager))}
+        timing = {"wall_ms": {m: statistics.median(w) for m, w in walls.items()},
+                  "capture_s": fn.capture_s, "pool_mib": graph.graph_pool_bytes() / 2**20,
+                  "profile": {m: {k: v for k, v in p.items() if k != "top_ms"}
+                              for m, p in prof.items()},
+                  "graphs": len(graph._compiled), "cuda_graphs": graph.cuda_graphs}
+        del meshed, graph, eager, fn
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     (one1, one3), (mesh1, mesh3) = res["one"]["params"], res["mesh"]["params"]
-    worst1, rel3, noise, sq = 0.0, {}, {}, [0.0, 0.0]
+    eager3 = res["eager"]["params"][1]
+    worst1, rel3, noise, sq, sq_eager = 0.0, {}, {}, [0.0, 0.0], 0.0
     for name, p in one1.items():
         g, rg = grads["mesh"][name], grads["one"][name]
         m = torch.where(g * rg > 0, torch.minimum(g.abs(), rg.abs()), 0.0)
@@ -3188,28 +3322,46 @@ def _mesh_train() -> dict:
         (noise if name.endswith(".k.bias") else rel3)[name] = gap / moved if moved else gap
         if not name.endswith(".k.bias"):
             sq[0], sq[1] = sq[0] + gap**2, sq[1] + moved**2
-    gap3 = (sq[0] / sq[1]) ** 0.5
+            sq_eager += float((eager3[name] - one3[name]).norm()) ** 2
+    gap3, gap3_eager = (sq[0] / sq[1]) ** 0.5, (sq_eager / sq[1]) ** 0.5
     worst3 = max(rel3, key=rel3.get)
-    lm, lo = res["mesh"]["losses"], res["one"]["losses"]
+    lm, lo, le = ([float(v) for v in res[k]["losses"]] for k in ("mesh", "one", "eager"))
+    loss1_equal = torch.equal(res["mesh"]["losses"][0], res["eager"]["losses"][0])
     moves = [abs(b - a) / abs(a) for a, b in zip(lo, lo[1:])]
+    prof = timing["profile"]
     log(f"mesh trainer {TRAIN_MODEL} 518² batch 2 f32 remat, lr {lr:g}, TF32 off: losses "
-        f"(data=2, model=2) {lm}, one device {lo} (relative moves {moves}); worst parameter "
+        f"(data=2, model=2) graph {lm}, eager {le} (step 1 bit for bit {loss1_equal}), one device "
+        f"{lo} (relative moves {moves}); worst parameter "
         f"error after step 1 {worst1:.3f} of its bound; update p3 - p0 relative L2 gap after "
-        f"step 3: {gap3:.3e} (tol {MESH_TRAIN_UPDATE_TOL:g}); per tensor, worst {worst3} "
+        f"step 3: {gap3:.3e} (tol {MESH_TRAIN_UPDATE_TOL:g}; the eager meshed trainer's "
+        f"{gap3_eager:.3e}); per tensor, worst {worst3} "
         f"{rel3[worst3]:.3e}, median {statistics.median(rel3.values()):.3e} over "
         f"{len(rel3)} tensors, keys' biases "
-        f"(left out) up to {max(noise.values(), default=0.0):.3e}; step ms mesh "
-        f"{[round(t, 2) for t in res['mesh']['step_ms']]}, one device "
-        f"{[round(t, 2) for t in res['one']['step_ms']]}; peak GiB mesh "
+        f"(left out) up to {max(noise.values(), default=0.0):.3e}; step ms mesh graph "
+        f"{[round(t, 2) for t in res['mesh']['step_ms']]}, mesh eager "
+        f"{[round(t, 2) for t in res['eager']['step_ms']]}, one device "
+        f"{[round(t, 2) for t in res['one']['step_ms']]}; peak GiB both meshed "
         f"{res['mesh']['peak_gib']:.3f}, one device {res['one']['peak_gib']:.3f}")
+    log(f"mesh trainer step, graph vs eager: wall median graph {timing['wall_ms']['graph']:.3f} ms, "
+        f"eager {timing['wall_ms']['eager']:.3f} ms (4 each, in turns); device a step graph "
+        f"{prof['graph']['device_ms']:.3f} ms, eager {prof['eager']['device_ms']:.3f} ms; busy "
+        f"share graph {prof['graph']['busy_share']:.3f}, eager {prof['eager']['busy_share']:.3f} "
+        f"(window of {TRAIN_PROFILED_STEPS}); kernels a step graph {prof['graph']['kernels']}, "
+        f"eager {prof['eager']['kernels']}; capture {timing['capture_s']:.3f} s; pool "
+        f"{timing['pool_mib']:.1f} MiB; {timing['graphs']} graph(s)")
     if not all(mv > 1e-4 for mv in moves):
         raise AssertionError(f"the one-device loss stopped moving: {lo}")
     if not (all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lm, lo)) and worst1 <= 1
             and gap3 <= MESH_TRAIN_UPDATE_TOL):
         raise AssertionError("the meshed trainer disagrees with the one-device trainer")
+    if not (loss1_equal and timing["cuda_graphs"] and timing["graphs"] == 1):
+        raise AssertionError("the meshed trainer's graph disagrees with its eager step")
     out = {k: {kk: vv for kk, vv in v.items() if kk != "params"} for k, v in res.items()}
+    for v in out.values():
+        v["losses"] = [float(t) for t in v["losses"]]
     return {**out, "step1_worst": worst1, "step3_update_gap": gap3,
-            "step3_worst_tensor_gap": rel3[worst3]}
+            "step3_update_gap_eager": gap3_eager, "step3_worst_tensor_gap": rel3[worst3],
+            "graph_vs_eager": timing}
 
 
 def _named_grads(tr) -> dict:
@@ -3225,13 +3377,28 @@ def _named_grads(tr) -> dict:
     return out
 
 
+def _mesh_served(label: str, mm, expected: dict) -> dict:
+    """The served DA-V2 of a meshed ``ModelManager``: its lone-request
+    signature as graphs (:func:`_mesh_graph`), and a lone 518² request's
+    submit+collect per image, graph against eager, in turns (8 each)."""
+    pipe = mm.get("depth-anything-v2")
+    row = _mesh_graph(label, pipe, [_frame(518, 518, 53)], expected)
+    row["submit_collect_ms"] = per = _per_image_in_turns(_timed_runs(pipe, "png", 1), 1, 4)
+    log(f"mesh {label}: submit+collect of a lone 518² request, per image eager "
+        f"{per['eager']:.3f} ms, graph {per['graph']:.3f} ms (8 each, in turns)")
+    return row
+
+
 def _mesh_server(out_dir: str) -> dict:
     """The server on meshes: ``serve --mesh data=1,model=1`` in a child
     process (one slot, a non-flat PLY) and ``serve --mesh data=2`` refused
-    with the slot-count error; in this process ``ModelManager(mesh=(data=2,
-    model=2) over four cuda:0 slots)`` behind the v1 app, three PNG
-    requests with exact launches (K1 12 blocks x 2 model x 2 data slots,
-    the lone request padded; K2 and K3 once per data slot)."""
+    with the slot-count error; in this process the one-slot mesh's
+    pipeline (what the child serves) as its graph, and ``ModelManager(
+    mesh=(data=2, model=2) over four cuda:0 slots)``: its pipeline as
+    graphs, then behind the v1 app, three PNG requests with exact
+    launches (K1 12 blocks x 2 model x 2 data slots, the lone request
+    padded; K2 and K3 once per data slot), and each mesh's submit+collect
+    of a lone request, graph against eager (:func:`_mesh_served`)."""
     import os
     import re
     import signal
@@ -3270,7 +3437,12 @@ def _mesh_server(out_dir: str) -> dict:
         child.send_signal(signal.SIGTERM)
         rc = child.wait(timeout=60)
         child.stderr.close()
+    one_slot = _mesh_served("serve --mesh data=1,model=1 (in process)",
+                            ModelManager("cuda", mesh=make_mesh(data=1, model=1, devices=_slots(1))),
+                            {"flash_attention": 12, "grid_knn": 1, "unproject": 1})
+    expected = {"flash_attention": 48, "grid_knn": 2, "unproject": 2}
     meshed = ModelManager("cuda", mesh=make_mesh(data=2, model=2, devices=_slots(4)))
+    served = _mesh_served("server (data=2, model=2)", meshed, expected)
     srv = _Server(out_dir, meshed)
     try:
         _request(srv.base, _png(518, 518, 51))  # builds the meshed model
@@ -3285,10 +3457,9 @@ def _mesh_server(out_dir: str) -> dict:
                 f"points, {len(np.unique(xyz[:, 2]))} distinct z, launches {counts}")
     finally:
         srv.stop()
-    expected = {"flash_attention": 48, "grid_knn": 2, "unproject": 2}
     if not (ok_refused and rc == 0 and all(c == expected for c in per)):
         raise AssertionError(f"the meshed server failed (child rc {rc}, expected {expected})")
-    return {"requests": per}
+    return {"requests": per, "one_slot": one_slot, "data2_model2": served}
 
 
 def phase_mesh(out_dir: str, models, int8_models) -> tuple[dict[str, int], dict]:
@@ -3310,7 +3481,8 @@ def phase_mesh(out_dir: str, models, int8_models) -> tuple[dict[str, int], dict]
     for name, blocks in (("depth-anything-v2", 12), ("dpt-large", 24)):
         out[f"tp {name}"] = r = _mesh_tp(models, name, blocks)
         add(f"{name} TP model=2", r["launches"], 1)
-    _mesh_int8(int8_models)
+    out["int8 tp"] = r = _mesh_int8(int8_models)
+    add("depth-anything-v2 int8 TP model=2", r["launches_replay"], 1)
     out["dp"] = dp = _mesh_dp(models)
     add("depth-anything-v2 DP data=2 batch 1", dp["launches"][1], 1)
     add("depth-anything-v2 DP data=2 batch 3", dp["launches"][3], 3)
@@ -3322,6 +3494,7 @@ def phase_mesh(out_dir: str, models, int8_models) -> tuple[dict[str, int], dict]
     out["server"] = srv = _mesh_server(out_dir)
     for c in srv["requests"]:
         add("depth-anything-v2 server data=2 model=2", c, 1)
+    add("depth-anything-v2 serve --mesh data=1,model=1", srv["one_slot"]["launches_replay"], 1)
     log(f"mesh phase numbers: {json.dumps(out, default=str)}")
     return totals, per_request
 

@@ -66,6 +66,7 @@ __all__ = [
     "batch_sharding",
     "broadcast",
     "broadcast_json_from_host0",
+    "captures_graphs",
     "device_put",
     "gather_params",
     "init_distributed",
@@ -156,6 +157,24 @@ def slot_grid(devices: Sequence, sizes: Mapping[str, int]) -> Mesh:
     arr = np.empty(need, dtype=object)
     arr[:] = devs[:need]
     return Mesh(arr.reshape(tuple(sizes.values())), tuple(sizes))
+
+
+def captures_graphs(mesh: Mesh, *, one_device: bool = False) -> bool:
+    """Whether a program over ``mesh`` replays CUDA graphs, from the mesh
+    alone: every slot on CUDA, and the slots of each data slot (its
+    ``model``, ``seq`` or ``pipe`` slots) on one device, so that a data
+    slot's share of the work is one single-device graph (the meshed
+    :class:`~..pipeline.graph.DepthPipeline`); with ``one_device``, every
+    slot of the mesh on one device, so that the whole program is one graph
+    (the meshed trainer, whose gradient sum over the data slots is inside
+    its step). TP or GPipe across cards inside a data slot, and a trainer
+    over several devices, keep their eager bodies; the CPU never captures."""
+    if not all(d.type == "cuda" for d in mesh.devices.flat):
+        return False
+    if one_device or DATA_AXIS not in mesh.shape:
+        return len(set(mesh.devices.flat)) == 1
+    rows = np.moveaxis(mesh.devices, mesh.axis_names.index(DATA_AXIS), 0)
+    return all(len(set(row.flat)) == 1 for row in rows)
 
 
 def make_mesh(
@@ -482,7 +501,15 @@ class MeshedModel(nn.Module):
     ``model=1``, its blocks) moves to the first slot in place, as
     ``Module.to`` moves it; with ``model`` > 1 each slot gets a copy of its
     own pieces of the blocks only, so no slot holds the whole encoder once
-    the caller drops ``model``."""
+    the caller drops ``model``.
+
+    Under CUDA graphs (:func:`captures_graphs`): a meshed pipeline captures
+    :meth:`forward_slot` once per data slot, on that slot's one device,
+    where every data slot's slots are one device; the trainer captures its
+    whole step where every slot is one device. Data slot d's replicas
+    (``live=False``) are built by its first forward, which is the capture's
+    eager warm-up pass, never the capture itself. A data slot over several
+    devices runs eagerly."""
 
     def __init__(self, model: nn.Module, mesh: Mesh, *, live: bool = False):
         super().__init__()

@@ -30,7 +30,9 @@ or the JPEG packers) is the graph's one input, unpacked on the device by
 the graph's first operations. The first call of a signature captures it
 (one eager pass, then the capture: see :class:`_CompiledGraph`); the
 server's warmup captures every batch bucket of its warmup sizes ahead of
-traffic. On the CPU and on a mesh the same callable runs eagerly. The
+traffic. On a mesh whose data slots are each one device, each data slot's
+share of a signature is a graph of its own, on that slot's device; on the
+CPU and on other meshes the same callable runs eagerly. The
 advanced pipelines (``pipeline/advanced.py``) and the v2 matte
 (``serve/matting.py``) keep their signatures the same way: each is a
 :class:`_GraphOwner`, as :class:`DepthPipeline` is.
@@ -66,6 +68,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import logging
 import os
 import threading
 import time
@@ -136,6 +139,8 @@ __all__ = [
     "plan_sparse_batch",
     "wants_exact_f32",
 ]
+
+logger = logging.getLogger(__name__)
 
 MAX_IMAGE_DIM = 3072  # reference backend/app.py:43
 DEPTH_PREVIEW_MAX = 2048  # reference backend/app.py:44
@@ -539,21 +544,25 @@ class _CompiledGraph:
     """``fn(*inputs) -> outputs`` of one signature, the port's counterpart
     of one of the JAX package's jitted functions; ``run(*tensors)`` is the
     signature's eager body (for :class:`DepthPipeline`: the payload tensor
-    → unpack → :meth:`DepthPipeline._forward` on each data slot, under
-    :func:`exact_f32` as every forward). An input is a host numpy array
-    (u8 pixels, a packed payload, f32 scalars) or a tensor on the owner's
-    device; the outputs are a tensor, None, or a tuple or a dict of them.
+    → unpack → :meth:`DepthPipeline._forward`, under :func:`exact_f32` as
+    every forward). An input is a host numpy array (u8 pixels, a packed
+    payload, f32 scalars) or a tensor on the graph's device; the outputs
+    are a tensor, None, or a tuple or a dict of them. ``device`` is where
+    the graph runs: the owner's, or a meshed pipeline's data slot's
+    (:class:`_SlotGraphs`).
 
-    When its owner runs no graphs (the CPU, a mesh) a call runs ``run``
-    eagerly on the inputs as tensors. On CUDA the first call captures
-    ``run`` into a CUDA graph, under the owner's build lock: one eager pass
-    first, on the capture stream (it makes the device constants and
-    settles cuBLAS and cuDNN; its result is dropped and, like an XLA
-    compile, it counts no launch), inside the owner's :meth:`_GraphOwner.
-    _warm_up` scope (where a body with side effects, the trainer's step,
-    undoes what the pass updated, so that the first call's step is its
-    replay's and no other), then the capture on the same stream,
-    into the memory pool that the owner's graphs share. Each input has a
+    When its owner runs no graphs (the CPU, a mesh that
+    :func:`~..parallel.sharding.captures_graphs` refuses) a call runs
+    ``run`` eagerly on the inputs as tensors. On CUDA the first call
+    captures ``run`` into a CUDA graph, under the owner's build lock: one
+    eager pass first, on the device's capture stream (it makes the device
+    constants and settles cuBLAS and cuDNN; its result is dropped and,
+    like an XLA compile, it counts no launch), inside the owner's
+    :meth:`_GraphOwner._warm_up` scope (where a body with side effects,
+    the trainer's step, undoes what the pass updated, so that the first
+    call's step is its replay's and no other), then the capture on the
+    same stream, into the memory pool that the owner's graphs on that
+    device share. Each input has a
     static tensor of its own in the graph. A capture that fails raises,
     naming the signature; nothing falls back to eager. Each call (the
     first too) copies each host input from pinned memory, and each device
@@ -561,13 +570,14 @@ class _CompiledGraph:
     returns fresh copies of its static outputs: two calls may be in flight
     before either is read, and the JAX package's executables return new
     buffers on every call. The copies in, the replay and the copies out
-    hold the owner's replay lock, and a replay waits for the owner's
-    previous one on the card: the graphs share one pool, so no two of
-    their replays may overlap. Each replay counts the hand kernels'
-    launches it replays (``cuda.replayed``)."""
+    hold the replay lock of the owner's graphs on that device, and a
+    replay waits for their previous one on the card: they share one pool,
+    so no two of their replays may overlap. Each replay counts the hand
+    kernels' launches it replays (``cuda.replayed``)."""
 
-    def __init__(self, owner: "_GraphOwner", key: tuple, run):
+    def __init__(self, owner: "_GraphOwner", key: tuple, run, device: "torch.device | None" = None):
         self.owner, self.key, self.run = owner, key, run
+        self.device = owner.device if device is None else device
         self.graph: "torch.cuda.CUDAGraph | None" = None
         self.static_in: tuple = ()
         self.static_out = None
@@ -592,15 +602,13 @@ class _CompiledGraph:
         return self._replay(staged)
 
     def _capture(self, staged: list) -> None:
-        owner = self.owner
-        dev = owner.device
+        owner, dev = self.owner, self.device
         t0 = time.perf_counter()
-        with _CAPTURE_LOCK:
+        with _CAPTURE_LOCK, torch.cuda.device(dev):
             stream = _CAPTURE_STREAMS.get(dev)
             if stream is None:
                 stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
-            if owner._graph_pool is None:
-                owner._graph_pool = torch.cuda.graph_pool_handle()
+            shared = owner._on_device(dev)
             static_in = tuple(torch.empty(tuple(s.shape), dtype=s.dtype, device=dev)
                               for s in staged)
             stream.wait_stream(torch.cuda.current_stream(dev))
@@ -619,12 +627,13 @@ class _CompiledGraph:
             gc.disable()
             try:
                 with cuda.recording_launches() as launches, torch.cuda.graph(
-                    graph, pool=owner._graph_pool, stream=stream,
+                    graph, pool=shared.pool, stream=stream,
                     capture_error_mode="thread_local",
                 ):
                     static_out = self.run(*static_in)
             except RuntimeError as e:
-                raise RuntimeError(f"CUDA graph capture of signature {self.key} failed: {e}") from e
+                raise RuntimeError(
+                    f"CUDA graph capture of signature {self.key} on {dev} failed: {e}") from e
             finally:
                 if collecting:
                     gc.enable()
@@ -633,30 +642,80 @@ class _CompiledGraph:
         self.graph = graph  # last: a caller that sees the graph sees the rest
 
     def _replay(self, staged: list):
-        owner = self.owner
-        stream = torch.cuda.current_stream(owner.device)
-        with owner._replay_lock:
-            if owner._replay_done is None:
-                owner._replay_done = torch.cuda.Event()
-            stream.wait_event(owner._replay_done)
+        shared = self.owner._on_device(self.device)
+        with shared.replay_lock, torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device)
+            if shared.replay_done is None:
+                shared.replay_done = torch.cuda.Event()
+            stream.wait_event(shared.replay_done)
             for t, s in zip(self.static_in, staged):
                 t.copy_(s, non_blocking=True)
             self.graph.replay()
             out = _clone(self.static_out)
-            owner._replay_done.record(stream)
+            shared.replay_done.record(stream)
         cuda.replayed(self.launches)
         return out
 
 
+class _SlotGraphs:
+    """The callable of one signature of a :class:`DepthPipeline` on a mesh
+    of several data slots: one :class:`_CompiledGraph` per data slot
+    (``slots``), on that slot's device, whose input is the slot's rows of
+    the payload, sliced on the host (each copy in stays on its device) and
+    whose body is the slot's whole pipeline on its rows. A call runs every
+    slot's callable (a replay, or its eager body where the pipeline runs
+    no graphs) and gathers their outputs on the first slot, outside the
+    graphs, as ``_run_slots`` gathers them. ``run(payload)`` is the
+    signature's eager body; ``graph`` is every slot's graph (None before
+    the capture), ``capture_s`` the sum of the slots' capture times."""
+
+    def __init__(self, owner: "DepthPipeline", key: tuple, run, slots: list):
+        self.owner, self.key, self.run, self.slots = owner, key, run, slots
+
+    def __call__(self, payload: np.ndarray):
+        per = payload.shape[0] // len(self.slots)
+        return self.owner._gather([fn(payload[d * per : (d + 1) * per])
+                                   for d, fn in enumerate(self.slots)])
+
+    @property
+    def graph(self) -> "tuple | None":
+        graphs = tuple(fn.graph for fn in self.slots)
+        return None if None in graphs else graphs
+
+    @property
+    def capture_s(self) -> "float | None":
+        times = [fn.capture_s for fn in self.slots]
+        return None if None in times else sum(times)
+
+
+class _DeviceGraphs:
+    """What an owner's CUDA graphs on one device share: the memory pool
+    (so the graphs of its signatures reuse one another's memory), the
+    replay lock and the last replay's event."""
+
+    def __init__(self, device: torch.device):
+        with torch.cuda.device(device):
+            self.pool = torch.cuda.graph_pool_handle()
+        self.replay_lock = threading.Lock()
+        self.replay_done: "torch.cuda.Event | None" = None
+
+
 class _GraphOwner:
-    """The signature cache of an object that runs compiled programs on one
-    device (:class:`DepthPipeline`, the advanced pipelines, the v2 matte):
-    its callables (:class:`_CompiledGraph`) under the JAX package's keys in
-    ``_compiled``, the shape-keyed ones of its ops (:meth:`_op`), and what
-    their CUDA graphs share: the build lock, the memory pool, the replay
-    lock and the last replay's event. ``cuda_graphs`` says whether the
-    callables capture (on CUDA) or run eagerly. The trainer and
-    ``train/eval.py``'s ``depth_metrics`` own their graphs the same way."""
+    """The signature cache of an object that runs compiled programs
+    (:class:`DepthPipeline`, the advanced pipelines, the v2 matte): its
+    callables (:class:`_CompiledGraph`) under the JAX package's keys in
+    ``_compiled``, the shape-keyed ones of its ops (:meth:`_op`), the
+    build lock, and what the CUDA graphs on each device share
+    (:class:`_DeviceGraphs`). ``device`` is the owner's (a meshed
+    pipeline's first slot, where its results gather); ``cuda_graphs``
+    says whether the callables capture (on CUDA) or run eagerly. Without
+    a mesh every graph is on ``device``; a meshed :class:`DepthPipeline`
+    captures one graph per data slot on that slot's device where each
+    data slot is one device (:func:`~..parallel.sharding.captures_graphs`),
+    and the meshed trainer one graph a step where the whole mesh is one
+    device; other meshes run eagerly, which their owners log once. The
+    trainer and ``train/eval.py``'s ``depth_metrics`` own their graphs the
+    same way."""
 
     def __init__(self, device: torch.device, cuda_graphs: bool):
         self.device = device
@@ -664,9 +723,15 @@ class _GraphOwner:
         self._compiled: dict[tuple, _CompiledGraph] = {}
         self._op_graphs: dict[tuple, _CompiledGraph] = {}
         self._build_lock = threading.Lock()
-        self._graph_pool = None  # the memory pool the graphs share
-        self._replay_lock = threading.Lock()
-        self._replay_done: "torch.cuda.Event | None" = None
+        self._devices: dict = {}  # torch.device → _DeviceGraphs
+
+    def _on_device(self, device: torch.device) -> _DeviceGraphs:
+        """What the owner's graphs on ``device`` share, made at its first
+        capture (under the capture lock); a replay follows a capture."""
+        shared = self._devices.get(device)
+        if shared is None:
+            shared = self._devices[device] = _DeviceGraphs(device)
+        return shared
 
     def _get(self, key: tuple, builder, cache: "dict | None" = None) -> _CompiledGraph:
         cache = self._compiled if cache is None else cache
@@ -699,13 +764,13 @@ class _GraphOwner:
         return self._get(key, lambda: _CompiledGraph(self, key, fn), self._op_graphs)(*inputs)
 
     def graph_pool_bytes(self) -> int:
-        """Device bytes reserved by the memory pool the CUDA graphs share
-        (0 before the first capture)."""
-        if self._graph_pool is None:
+        """Device bytes reserved by the memory pools the CUDA graphs share,
+        over every device (0 before the first capture)."""
+        if not self._devices:
             return 0
-        pool = tuple(self._graph_pool)
+        pools = {tuple(shared.pool) for shared in self._devices.values()}
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+                   if tuple(seg.get("segment_pool_id", ())) in pools)
 
 
 class DepthPipeline(_GraphOwner):
@@ -732,7 +797,15 @@ class DepthPipeline(_GraphOwner):
     neither replicates it on every data slot. On a mesh the pipeline takes
     ``model`` over (best given on the CPU, as :class:`~..serve.models.
     ModelManager` gives it) and keeps its blocks only as the slots hold
-    them: :attr:`model` is then the model without its blocks."""
+    them: :attr:`model` is then the model without its blocks.
+
+    On CUDA each signature is a CUDA graph per data slot, on that slot's
+    device (:class:`_SlotGraphs`; with one data slot, one graph, as
+    without a mesh), wherever every data slot's slots are one device
+    (:func:`~..parallel.sharding.captures_graphs`: DP over any devices,
+    TP, int8 TP or GPipe inside one card, every slot of one card). A mesh
+    with TP or GPipe across cards inside a data slot runs its eager body,
+    and the pipeline logs so once."""
 
     def __init__(
         self,
@@ -754,9 +827,18 @@ class DepthPipeline(_GraphOwner):
 
             model = without_blocks(model)
         self.model = model
-        # One callable per signature (:meth:`_get`); on CUDA without a mesh
-        # each is a CUDA graph, captured on first use.
-        super().__init__(self._slots[0][0], self._slots[0][0].type == "cuda" and mesh is None)
+        # One callable per signature (:meth:`_get`); on CUDA each is a CUDA
+        # graph (one per data slot on a mesh), captured on first use.
+        first = self._slots[0][0]
+        graphs = first.type == "cuda"
+        if mesh is not None and graphs:
+            from image_to_pointcloud_tpu_torch.parallel.sharding import captures_graphs
+
+            graphs = captures_graphs(mesh)
+            if not graphs:
+                logger.warning("DepthPipeline on %r: a data slot spans several devices, so "
+                               "every signature runs its eager body (no CUDA graphs)", mesh)
+        super().__init__(first, graphs)
         # f32 on CUDA runs without TF32 (the module docstring).
         self.exact_f32 = wants_exact_f32(self.device, self.dtype)
         (
@@ -819,6 +901,11 @@ class DepthPipeline(_GraphOwner):
                 self._forward(*rows(d, dev), in_hw, options, want_preview, model=fwd, **kw)
                 for d, (dev, fwd) in enumerate(self._slots)
             ]
+        return self._gather(outs)
+
+    def _gather(self, outs: list) -> tuple:
+        """Each data slot's (out, preview) → the batch's, on the first
+        slot."""
         if len(outs) == 1:
             return outs[0]
         out = torch.cat([o.to(self.device) for o, _ in outs])
@@ -998,7 +1085,21 @@ class DepthPipeline(_GraphOwner):
 
             return self._run_slots(rows, in_hw, opts, preview, **kw)
 
-        return _CompiledGraph(self, key, run)
+        if len(self._slots) == 1:
+            return _CompiledGraph(self, key, run)
+
+        def slot_run(d: int):
+            @torch.inference_mode()
+            def run_slot(rows_u8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+                dev, fwd = self._slots[d]
+                with exact_f32(self.exact_f32):
+                    return self._forward(*unpack(rows_u8.to(dev)), in_hw, opts, preview,
+                                         model=fwd, **kw)
+
+            return run_slot
+
+        return _SlotGraphs(self, key, run, [_CompiledGraph(self, key, slot_run(d), device=dev)
+                                            for d, (dev, _) in enumerate(self._slots)])
 
     @staticmethod
     def pack_payload(imgs: np.ndarray, depth_scales: np.ndarray) -> np.ndarray:

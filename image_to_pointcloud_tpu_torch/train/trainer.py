@@ -29,7 +29,8 @@ backward), and ``remat`` checkpoints each DINOv2 or ViT block
 train without it, as in the JAX package.
 
 As the JAX package jits the step (``params`` and ``opt_state`` donated),
-the port captures it: on a one-slot CUDA mesh each signature (pixels'
+the port captures it: on a CUDA mesh whose slots are all one device (one
+slot, or data and model slots sharing a card) each signature (pixels'
 shape and dtype, the target's shape, the mask's) is one CUDA graph
 (``pipeline/graph.py``'s ``_CompiledGraph``) of the whole step, in place
 on the trainer's parameters, gradients and optimizer state. The warm-up
@@ -40,14 +41,16 @@ capture starts, so the captured backward makes them in the graph's pool
 that signature's, the step's clipped gradient. AdamW on CUDA is
 ``capturable`` (its step count on the device), eagerly too, so that the
 graph and the eager body do the same arithmetic; the CPU keeps the
-default AdamW. On the CPU and on meshes of more slots the step runs
-eagerly through the same callable.
+default AdamW. On the CPU, and on a mesh over several devices (whose
+gradient sum across devices is inside the step), the step runs eagerly
+through the same callable (on such a mesh the trainer logs so once).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 from typing import Any, Callable
 
 import torch
@@ -61,6 +64,8 @@ from image_to_pointcloud_tpu_torch.train.losses import (
 )
 
 __all__ = ["TrainConfig", "Trainer", "train_model_config"]
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,9 +109,11 @@ class Trainer(_GraphOwner):
     Without model slots :attr:`model` is the one-device module, whose
     parameters are the ones trained (in its order, so an optimizer state
     resumes); with them it is None (the blocks are sharded: :attr:`net`).
-    ``cuda_graphs`` (a one-slot CUDA mesh) says whether the step replays
-    a CUDA graph a signature, held in ``_compiled`` under the JAX jit's
-    retrace key; an optimizer state loaded later (``opt.load_state_dict``)
+    ``cuda_graphs`` (a CUDA mesh whose slots are all one device, by
+    :func:`~..parallel.sharding.captures_graphs`) says whether the step
+    replays a CUDA graph a signature, held in ``_compiled`` under the JAX
+    jit's retrace key; a mesh over several devices steps eagerly, as the
+    CPU does. An optimizer state loaded later (``opt.load_state_dict``)
     drops the graphs, which held the old state's tensors."""
 
     def __init__(
@@ -122,6 +129,7 @@ class Trainer(_GraphOwner):
             MODEL_AXIS,
             MeshedModel,
             Sharded,
+            captures_graphs,
             gather_params,
             make_mesh,
             visible_devices,
@@ -132,7 +140,11 @@ class Trainer(_GraphOwner):
         self.cfg = cfg
         self.mesh = mesh
         first = mesh.device()
-        super().__init__(first, first.type == "cuda" and mesh.devices.size == 1)
+        graphs = captures_graphs(mesh, one_device=True)
+        if first.type == "cuda" and not graphs:
+            logger.warning("Trainer on %r: the mesh spans several devices, so the step runs "
+                           "eagerly (no CUDA graph)", mesh)
+        super().__init__(first, graphs)
         # The model is f32: on CUDA its forward and backward run without
         # TF32 (``pipeline/graph.py``).
         self.exact_f32 = wants_exact_f32(self.device, torch.float32)
@@ -223,7 +235,9 @@ class Trainer(_GraphOwner):
         else:
             mask = self._global(mask, torch.bool)
         if isinstance(pixels, Sharded) and self.cuda_graphs:
-            pixels = pixels.gather(self.device)  # the one slot's tensor
+            # The graph's one static input: every slot is on this device, and
+            # the step splits it back into the same rows (``split_rows``).
+            pixels = pixels.gather(self.device)
         elif not isinstance(pixels, (Sharded, torch.Tensor)):
             pixels = torch.as_tensor(pixels)
         if isinstance(pixels, Sharded):  # its rows over the data slots
@@ -259,8 +273,9 @@ class Trainer(_GraphOwner):
 
     @contextlib.contextmanager
     def _warm_up(self):
-        """Around a capture's warm-up pass, a real step: the parameters and
-        AdamW's state come back as they were (a state the pass made, AdamW's
+        """Around a capture's warm-up pass, a real step: the trained
+        parameters (every model slot's shards on a mesh with model slots)
+        and AdamW's state come back as they were (a state the pass made, AdamW's
         lazy init, back to its zeros), and every gradient goes to None, so
         that the captured backward makes them in the graph's pool."""
         with torch.no_grad():
