@@ -124,6 +124,7 @@ from image_to_pointcloud_tpu_torch.pipeline.transfer import (
     unpack_depth8t,
     ycc420_to_rgb_f32,
 )
+from image_to_pointcloud_tpu_torch.utils import spans
 
 __all__ = [
     "DepthPipeline",
@@ -187,6 +188,9 @@ class _Handle:
     depth_scales: np.ndarray  # (B,) f32
     imgs: np.ndarray | None  # host pixels; None on the JPEG ingest
     host_rgb: np.ndarray | None  # (B, hh, ww, 3) u8 host-reconstructed colours
+    # Seconds of the batch's pipeline stages ("pipeline.pack", "pipeline.replay";
+    # collect adds "pipeline.d2h_wait" and "pipeline.unbundle").
+    stages: dict
 
 
 def default_quantized_transfer(device: "str | torch.device") -> bool:
@@ -595,6 +599,7 @@ class _CompiledGraph:
             with owner._build_lock:
                 if self.graph is None:
                     self._capture(staged)
+                    spans.count("ipc_graph_captures_total")
         if [(s.shape, s.dtype) for s in staged] != [(t.shape, t.dtype) for t in self.static_in]:
             raise ValueError(
                 f"inputs {[(tuple(s.shape), s.dtype) for s in staged]} do not match the "
@@ -1037,16 +1042,18 @@ class DepthPipeline(_GraphOwner):
             parts.append(pix.to(torch.uint8).reshape(bq, -1))
         return torch.cat(parts, dim=1)
 
-    def _handle(self, out, prev, in_hw, options, depth_scales, b, imgs=None, host_rgb=None):
+    def _handle(self, out, prev, in_hw, options, depth_scales, b, imgs=None, host_rgb=None,
+                stages=None):
         """The handle of a submitted batch, its outputs cut back to the
-        ``b`` real rows (a mesh pads a batch to its data slots)."""
+        ``b`` real rows (a mesh pads a batch to its data slots);
+        ``stages``, its submit's."""
         if out.shape[0] != b:
             out, prev = out[:b], None if prev is None else prev[:b]
         h, w = _proc_hw(*in_hw)
         step = DENSITY_STRIDES[options.density]
         return _Handle(
             out, prev, self.quantized_transfer, (-(-h // step), -(-w // step)), (h, w),
-            step, options.fov, depth_scales, imgs, host_rgb,
+            step, options.fov, depth_scales, imgs, host_rgb, {} if stages is None else stages,
         )
 
     # ---------- the signature cache ----------
@@ -1178,15 +1185,27 @@ class DepthPipeline(_GraphOwner):
         """Enqueue one batch of same-size images through its signature's
         graph; returns a handle for :meth:`collect`. On CUDA the work runs
         asynchronously."""
-        imgs = np.stack(images_rgb_u8)
-        b, h0, w0 = imgs.shape[:3]
-        scales = np.broadcast_to(np.asarray(depth_scales, np.float32), (b,)).copy()
-        pad = self._data_pad(b)
-        run_imgs = np.concatenate([imgs, imgs[-1:].repeat(pad, 0)]) if pad else imgs
-        run_scales = np.concatenate([scales, scales[-1:].repeat(pad)]) if pad else scales
-        fn = self.compiled_graph(b + pad, (h0, w0), options, want_preview)
-        out, prev = fn(self.pack_payload(run_imgs, run_scales))
-        return self._handle(out, prev, (h0, w0), options, scales, b, imgs=imgs)
+        stages: dict = {}
+        with spans.span("pipeline.pack", stages):
+            imgs = np.stack(images_rgb_u8)
+            b, h0, w0 = imgs.shape[:3]
+            scales = np.broadcast_to(np.asarray(depth_scales, np.float32), (b,)).copy()
+            pad = self._data_pad(b)
+            run_imgs = np.concatenate([imgs, imgs[-1:].repeat(pad, 0)]) if pad else imgs
+            run_scales = np.concatenate([scales, scales[-1:].repeat(pad)]) if pad else scales
+            fn = self.compiled_graph(b + pad, (h0, w0), options, want_preview)
+            payload = self.pack_payload(run_imgs, run_scales)
+        out, prev = self._launch(fn, payload, stages)
+        return self._handle(out, prev, (h0, w0), options, scales, b, imgs=imgs, stages=stages)
+
+    @staticmethod
+    def _launch(fn, payload: np.ndarray, stages: dict):
+        """``fn(payload)`` as the batch's "pipeline.replay" stage: the
+        pinned staging, the copy in and the replay (or the eager body
+        where no graphs run). Counts the payload's bytes to the device."""
+        spans.count("ipc_h2d_bytes_total", payload.nbytes)
+        with spans.span("pipeline.replay", stages):
+            return fn(payload)
 
     @staticmethod
     def pack_jpeg_payload(jpegs: "list[JpegInput]", depth_scales: np.ndarray) -> np.ndarray:
@@ -1258,35 +1277,37 @@ class DepthPipeline(_GraphOwner):
         JpegSpec (serving buckets by spec as pixel items bucket by shape).
         The payload is the sparse one whenever :meth:`select_sparse_caps`
         finds it smaller than the dense one."""
-        b = len(jpegs)
-        if b == 0:
-            raise ValueError("empty batch")
-        spec = jpegs[0].spec
-        if any(j.spec != spec for j in jpegs):
-            raise ValueError("submit_batch_jpeg requires one shared JpegSpec")
-        scales = np.broadcast_to(np.asarray(depth_scales, np.float32), (b,)).copy()
-        step = DENSITY_STRIDES[options.density]
-        # Host colours: every item must reconstruct, or the whole batch
-        # keeps the device ride-along (one bundle layout per batch).
-        # grid_colors is cached; the server's planner precomputes it.
-        host_rgb = None
-        if self.quantized_transfer and self.host_colors_enabled:
-            cols = [j.grid_colors(step) for j in jpegs]
-            if all(c is not None for c in cols):
-                host_rgb = np.stack(cols)
-        pad = self._data_pad(b)
-        run = jpegs + [jpegs[-1]] * pad
-        run_scales = np.concatenate([scales, scales[-1:].repeat(pad)]) if pad else scales
-        caps = self.select_sparse_caps(run)
-        fn = self.compiled_graph_jpeg(b + pad, spec, options, want_preview, sparse_cap=caps,
-                                      host_colors=host_rgb is not None)
-        if caps is not None:
-            payload = self.pack_jpeg_sparse_payload(run, run_scales, *caps)
-        else:
-            payload = self.pack_jpeg_payload(run, run_scales)
-        out, prev = fn(payload)
+        stages: dict = {}
+        with spans.span("pipeline.pack", stages):
+            b = len(jpegs)
+            if b == 0:
+                raise ValueError("empty batch")
+            spec = jpegs[0].spec
+            if any(j.spec != spec for j in jpegs):
+                raise ValueError("submit_batch_jpeg requires one shared JpegSpec")
+            scales = np.broadcast_to(np.asarray(depth_scales, np.float32), (b,)).copy()
+            step = DENSITY_STRIDES[options.density]
+            # Host colours: every item must reconstruct, or the whole batch
+            # keeps the device ride-along (one bundle layout per batch).
+            # grid_colors is cached; the server's planner precomputes it.
+            host_rgb = None
+            if self.quantized_transfer and self.host_colors_enabled:
+                cols = [j.grid_colors(step) for j in jpegs]
+                if all(c is not None for c in cols):
+                    host_rgb = np.stack(cols)
+            pad = self._data_pad(b)
+            run = jpegs + [jpegs[-1]] * pad
+            run_scales = np.concatenate([scales, scales[-1:].repeat(pad)]) if pad else scales
+            caps = self.select_sparse_caps(run)
+            fn = self.compiled_graph_jpeg(b + pad, spec, options, want_preview, sparse_cap=caps,
+                                          host_colors=host_rgb is not None)
+            if caps is not None:
+                payload = self.pack_jpeg_sparse_payload(run, run_scales, *caps)
+            else:
+                payload = self.pack_jpeg_payload(run, run_scales)
+        out, prev = self._launch(fn, payload, stages)
         return self._handle(out, prev, (spec.height, spec.width), options, scales, b,
-                            host_rgb=host_rgb)
+                            host_rgb=host_rgb, stages=stages)
 
     def collect(
         self,
@@ -1298,39 +1319,44 @@ class DepthPipeline(_GraphOwner):
     ) -> list[PipelineResult]:
         """Bring a submitted batch to the host and split it per image.
         ``want_preview_rgb=False`` skips the host PLASMA lookup for callers
-        that render the gray preview themselves."""
-        out = handle.out.cpu().numpy()  # the batch's one device→host copy
-        prev_np = prev_gray = None
-        if want_preview and handle.preview is not None:
-            prev_np = handle.preview.cpu().numpy()
-            if prev_np.ndim == 3:  # gray u8 → PLASMA on the host
+        that render the gray preview themselves. Its stages, "pipeline.d2h_wait"
+        (the wait for the device and the copies) and "pipeline.unbundle"
+        (the split into clouds), add to ``handle.stages``."""
+        prev = handle.preview if want_preview else None
+        with spans.span("pipeline.d2h_wait", handle.stages):
+            out = handle.out.cpu().numpy()  # the batch's one device→host copy
+            prev_np = None if prev is None else prev.cpu().numpy()
+        spans.count("ipc_d2h_bytes_total", out.nbytes + (0 if prev_np is None else prev_np.nbytes))
+        with spans.span("pipeline.unbundle", handle.stages):
+            prev_gray = None
+            if prev_np is not None and prev_np.ndim == 3:  # gray u8 → PLASMA on the host
                 prev_gray = prev_np
                 prev_np = PLASMA_RGB[prev_np] if want_preview_rgb else None
-        if handle.quantized:
-            clouds = self._unbundle(handle, out, want_packed)
-        else:
-            clouds = []
-            for packed in out:
-                keep = packed[6] > 0.5
-                clouds.append((
-                    np.ascontiguousarray(packed[:3].T[keep]),
-                    np.ascontiguousarray(packed[3:6].T[keep]),
-                    packed if want_packed else None,
-                ))
-        hh, ww = handle.grid_hw
-        return [
-            PipelineResult(
-                points=points,
-                colors=colors,
-                depth_preview_rgb=prev_np[i] if prev_np is not None else None,
-                depth_preview_gray=prev_gray[i] if prev_gray is not None else None,
-                raw_point_count=hh * ww,
-                kept_point_count=len(points),
-                packed=packed,
-                grid_hw=handle.grid_hw,
-            )
-            for i, (points, colors, packed) in enumerate(clouds)
-        ]
+            if handle.quantized:
+                clouds = self._unbundle(handle, out, want_packed)
+            else:
+                clouds = []
+                for packed in out:
+                    keep = packed[6] > 0.5
+                    clouds.append((
+                        np.ascontiguousarray(packed[:3].T[keep]),
+                        np.ascontiguousarray(packed[3:6].T[keep]),
+                        packed if want_packed else None,
+                    ))
+            hh, ww = handle.grid_hw
+            return [
+                PipelineResult(
+                    points=points,
+                    colors=colors,
+                    depth_preview_rgb=prev_np[i] if prev_np is not None else None,
+                    depth_preview_gray=prev_gray[i] if prev_gray is not None else None,
+                    raw_point_count=hh * ww,
+                    kept_point_count=len(points),
+                    packed=packed,
+                    grid_hw=handle.grid_hw,
+                )
+                for i, (points, colors, packed) in enumerate(clouds)
+            ]
 
     def _unbundle(
         self, handle: _Handle, bundle: np.ndarray, want_packed: bool

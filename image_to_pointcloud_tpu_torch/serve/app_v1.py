@@ -20,8 +20,19 @@ of the model manager is served (``model=`` Depth-Anything-V2, ``dpt-large``
 and the classic-DPT family, ``zoedepth``); the reference's dummy models
 ``triposr``/``instantmesh`` run their intensity-as-depth graphs on the
 service's device. ``POST /profile/start`` and ``/profile/stop`` bracket a
-``torch.profiler`` trace, written as a Chrome trace under
+``torch.profiler`` trace of every thread, written as a Chrome trace under
 ``<output_dir>/traces`` on stop.
+
+A job's ``/timings/{id}`` holds its stages in seconds as they end: the
+leaf spans of :mod:`image_to_pointcloud_tpu_torch.utils.spans`
+(``http.upload``; ``job.start_wait``, ``job.executor_wait``,
+``job.model_get``, ``job.decode`` or ``job.jpeg_plan``; the batcher's
+``batch.wait`` to ``job.resume_wait``; ``job.preview_png``,
+``job.preview_json``, ``job.metadata``, ``job.export``,
+``job.status_updates``; ``http.status_body``, ``http.download_export``,
+``http.download_send``), disjoint in time, and the coarser ``model_load``, ``decode``/``jpeg_plan``,
+``inference_unproject_refine``, ``preview_encode``, ``export`` and
+``total``.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch._C._profiler import _ExperimentalConfig
 
 from image_to_pointcloud_tpu_torch.io import (
     generate_gis_metadata,
@@ -249,31 +261,49 @@ class V1Service:
 
     # ---------- pipeline task ----------
 
-    async def _process_job(self, job_id: str, data: bytes, req: dict) -> None:
+    async def _process_job(
+        self, job_id: str, data: bytes, req: dict, timings: dict, spawned_at: float
+    ) -> None:
+        """Run one job; its stages go to ``timings`` (``spawned_at``: when
+        the route spawned it, on the host's clock)."""
+        m.record("job.start_wait", time.perf_counter() - spawned_at, timings)
         jobs = self.jobs
         loop = asyncio.get_running_loop()
-        timings: dict[str, float] = {}
         t_start = time.perf_counter()
 
         def _mark(stage, t0):
             timings[stage] = round(time.perf_counter() - t0, 4)
 
+        async def _update(**kw):
+            with m.span("job.status_updates", timings):
+                await jobs.update(job_id, **kw)
+
+        async def _in_executor(stage, fn, *args):
+            """``fn(*args)`` on the executor as the span ``stage``; the wait
+            for a thread and back to the loop adds to job.executor_wait."""
+            t0 = time.perf_counter()
+
+            def work():
+                with m.span(stage, timings) as sp:
+                    return sp, fn(*args)
+
+            sp, out = await loop.run_in_executor(self.executor, work)
+            m.record("job.executor_wait", time.perf_counter() - t0 - sp.seconds, timings)
+            return out
+
         try:
-            await jobs.update(
-                job_id, status=JobStatus.PROCESSING, progress=10,
-                message="Loading AI model...",
+            await _update(
+                status=JobStatus.PROCESSING, progress=10, message="Loading AI model...",
             )
             model_name = req["model"]
             dummy = model_name in DUMMY_MODELS
             t0 = time.perf_counter()
             if not dummy:
-                pipeline = await loop.run_in_executor(
-                    self.executor, self.models.get, model_name
-                )
+                pipeline = await _in_executor("job.model_get", self.models.get, model_name)
             self.loaded_model_names.add(model_name)
             _mark("model_load", t0)
 
-            await jobs.update(job_id, progress=20, message="Processing image...")
+            await _update(progress=20, message="Processing image...")
             t0 = time.perf_counter()
             image = None
             if self.jpeg_device_decode and not dummy:
@@ -291,11 +321,11 @@ class V1Service:
                         j.grid_colors(s)
                     return j
 
-                image = await loop.run_in_executor(self.executor, _plan)
+                image = await _in_executor("job.jpeg_plan", _plan)
                 if image is not None:
                     _mark("jpeg_plan", t0)
             if image is None:
-                image = await loop.run_in_executor(self.executor, decode_image_rgb, data)
+                image = await _in_executor("job.decode", decode_image_rgb, data)
                 _mark("decode", t0)
 
             opts = PipelineOptions(
@@ -308,31 +338,24 @@ class V1Service:
 
             res = None
             if dummy:
-                await jobs.update(
-                    job_id, progress=40, message=f"Processing with {model_name}..."
-                )
+                await _update(progress=40, message=f"Processing with {model_name}...")
                 device = self.models.device
-                points, colors = await loop.run_in_executor(
-                    self.executor, dummy_point_cloud_graph, image,
+                points, colors = await _in_executor(
+                    "job.dummy_graphs", dummy_point_cloud_graph, image,
                     req["point_density"], device,
                 )
-                demo = await loop.run_in_executor(
-                    self.executor, demo_depth_map_graph, image, device
-                )
-                depth_data_url = png_data_url(demo)
+                demo = await _in_executor("job.dummy_graphs", demo_depth_map_graph, image, device)
+                with m.span("job.preview_png", timings):
+                    depth_data_url = png_data_url(demo)
             else:
-                await jobs.update(
-                    job_id, progress=40, message="Estimating depth with AI..."
-                )
+                await _update(progress=40, message="Estimating depth with AI...")
                 batcher = self._batchers.get(model_name)
                 if batcher is None:
                     batcher = BatchingQueue(
                         pipeline, window_ms=self.batch_window_ms, max_batch=self.max_batch
                     )
                     self._batchers[model_name] = batcher
-                await jobs.update(
-                    job_id, progress=60, message="Generating 3D point cloud..."
-                )
+                await _update(progress=60, message="Generating 3D point cloud...")
                 t0 = time.perf_counter()
                 # Packed grids are host-assembled only for grid-mesh output.
                 need_packed = (
@@ -340,56 +363,58 @@ class V1Service:
                     and self.mesh_method == "grid"
                 )
                 res = await batcher.submit(
-                    image, req["depth_scale"], opts, want_packed=need_packed
+                    image, req["depth_scale"], opts, want_packed=need_packed, timings=timings
                 )
                 _mark("inference_unproject_refine", t0)
-                t0 = time.perf_counter()
-                depth_data_url = png_data_url_palette(res.depth_preview_gray, PLASMA_RGB)
-                _mark("preview_encode", t0)
+                with m.span("job.preview_png", timings) as sp:
+                    depth_data_url = png_data_url_palette(res.depth_preview_gray, PLASMA_RGB)
+                timings["preview_encode"] = round(sp.seconds, 4)
                 points, colors = res.points, res.colors
 
-            await jobs.update(job_id, progress=80, message="Saving point cloud...")
+            await _update(progress=80, message="Saving point cloud...")
 
-            # Preview decimation (reference backend/app.py:496-506).
-            if len(points) > self.max_preview_points:
-                stride = max(1, len(points) // self.max_preview_points)
-                pprev, cprev = points[::stride], colors[::stride]
-            else:
-                pprev, cprev = points, colors
-            preview_points = _triplets_json(pprev)
-            preview_colors = _triplets_json(cprev)
+            with m.span("job.preview_json", timings):
+                # Preview decimation (reference backend/app.py:496-506).
+                if len(points) > self.max_preview_points:
+                    stride = max(1, len(points) // self.max_preview_points)
+                    pprev, cprev = points[::stride], colors[::stride]
+                else:
+                    pprev, cprev = points, colors
+                preview_points = _triplets_json(pprev)
+                preview_colors = _triplets_json(cprev)
 
             fmt = req["output_format"].lower()
             mesh_preview = None
             base = str(self.output_dir / job_id)
             t0 = time.perf_counter()
             if fmt in MESH_FORMATS:
-                filepath, mesh_preview = await loop.run_in_executor(
-                    self.executor, self._export_mesh, base, res, points, colors
+                filepath, mesh_preview = await _in_executor(
+                    "job.export", self._export_mesh, base, res, points, colors
                 )
             elif self.lazy_export:
-                filepath = self._defer_export(job_id, fmt, points, colors, base)
+                with m.span("job.export", timings):
+                    filepath = self._defer_export(job_id, fmt, points, colors, base)
             else:
-                filepath = await loop.run_in_executor(
-                    self.executor, self._export_points, base, fmt, points, colors
+                filepath = await _in_executor(
+                    "job.export", self._export_points, base, fmt, points, colors
                 )
             _mark("export", t0)
             timings["total"] = round(time.perf_counter() - t_start, 4)
 
-            metadata = generate_gis_metadata(
-                points,
-                coordinate_system=req["coordinate_system"],
-                model=model_name,
-                output_format=req["output_format"],
-                point_density=req["point_density"],
-                depth_scale=req["depth_scale"],
-                invert_depth=req["invert_depth"],
-                smooth_depth=req["smooth_depth"],
-                gps_coords=req.get("gps_coords"),
-            )
+            with m.span("job.metadata", timings):
+                metadata = generate_gis_metadata(
+                    points,
+                    coordinate_system=req["coordinate_system"],
+                    model=model_name,
+                    output_format=req["output_format"],
+                    point_density=req["point_density"],
+                    depth_scale=req["depth_scale"],
+                    invert_depth=req["invert_depth"],
+                    smooth_depth=req["smooth_depth"],
+                    gps_coords=req.get("gps_coords"),
+                )
 
-            await jobs.update(
-                job_id,
+            await _update(
                 status=JobStatus.COMPLETED,
                 progress=100,
                 message="Processing complete!",
@@ -409,9 +434,6 @@ class V1Service:
                     "depthMap": depth_data_url,
                 },
             )
-            job = jobs.get(job_id)
-            if job is not None:
-                job.extra["timings"] = timings
             m.JOBS_TOTAL.inc(api="v1", status="completed")
             m.JOB_DURATION.observe(timings["total"], api="v1")
             m.IMAGES_PROCESSED.inc(model=model_name)
@@ -578,33 +600,37 @@ class V1Service:
 
         @r.post("/process")
         async def process(req: Request):
-            f = req.files.get("file")
-            if f is None or not f.content_type.startswith("image/"):
-                raise HTTPError(400, "File must be an image")
-            data = f.data
-            if len(data) > svc.max_file_size:
-                raise HTTPError(
-                    413,
-                    f"File size ({len(data)/1024/1024:.1f}MB) exceeds maximum "
-                    f"allowed size ({svc.max_file_size/1024/1024:.0f}MB)",
-                )
-            q = {**req.query, **req.form}
-            d = svc.defaults
-            try:
-                request = {
-                    "model": q.get("model", d.model),
-                    "output_format": q.get("output_format", d.output_format),
-                    "point_density": q.get("point_density", d.point_density),
-                    "coordinate_system": q.get("coordinate_system", d.coordinate_system),
-                    "invert_depth": _parse_bool(q.get("invert_depth"), d.invert_depth),
-                    "depth_scale": float(q.get("depth_scale", d.depth_scale)),
-                    "smooth_depth": _parse_bool(q.get("smooth_depth"), d.smooth_depth),
-                    "fov": float(q.get("fov", d.fov)),
-                }
-            except ValueError as e:
-                raise HTTPError(422, f"Invalid parameter value: {e}") from None
-            job = await svc.jobs.create(message="Job queued", model=request["model"])
-            svc._spawn(svc._process_job(job.job_id, data, request))
+            timings: dict[str, float] = {}
+            with m.span("http.upload", timings):
+                f = req.files.get("file")
+                if f is None or not f.content_type.startswith("image/"):
+                    raise HTTPError(400, "File must be an image")
+                data = f.data
+                if len(data) > svc.max_file_size:
+                    raise HTTPError(
+                        413,
+                        f"File size ({len(data)/1024/1024:.1f}MB) exceeds maximum "
+                        f"allowed size ({svc.max_file_size/1024/1024:.0f}MB)",
+                    )
+                q = {**req.query, **req.form}
+                d = svc.defaults
+                try:
+                    request = {
+                        "model": q.get("model", d.model),
+                        "output_format": q.get("output_format", d.output_format),
+                        "point_density": q.get("point_density", d.point_density),
+                        "coordinate_system": q.get("coordinate_system", d.coordinate_system),
+                        "invert_depth": _parse_bool(q.get("invert_depth"), d.invert_depth),
+                        "depth_scale": float(q.get("depth_scale", d.depth_scale)),
+                        "smooth_depth": _parse_bool(q.get("smooth_depth"), d.smooth_depth),
+                        "fov": float(q.get("fov", d.fov)),
+                    }
+                except ValueError as e:
+                    raise HTTPError(422, f"Invalid parameter value: {e}") from None
+                job = await svc.jobs.create(message="Job queued", model=request["model"])
+                # Filled as the job runs; /status and /download add theirs.
+                job.extra["timings"] = timings
+            svc._spawn(svc._process_job(job.job_id, data, request, timings, time.perf_counter()))
             return json_response({"job_id": job.job_id, "status": "queued"})
 
         @r.get("/status/{job_id}")
@@ -627,14 +653,17 @@ class V1Service:
             if job.status != JobStatus.COMPLETED:
                 raise HTTPError(400, "Job not completed")
             filepath = job.results["pointCloud"]["filepath"]
-            await svc._ensure_exported(job.job_id)
+            timings = job.extra.get("timings")
+            with m.span("http.download_export", timings):
+                await svc._ensure_exported(job.job_id)
             if not Path(filepath).exists():
                 raise HTTPError(404, "File not found")
-            return await file_response(
-                filepath,
-                media_type="application/octet-stream",
-                filename=Path(filepath).name,
-            )
+            with m.span("http.download_send", timings):
+                return await file_response(
+                    filepath,
+                    media_type="application/octet-stream",
+                    filename=Path(filepath).name,
+                )
 
         @r.get("/models")
         async def models(req: Request):
@@ -716,16 +745,18 @@ class V1Service:
 
         @r.post("/profile/start")
         async def profile_start(req: Request):
-            """Start a torch.profiler trace: CPU ops of this thread, and
-            with CUDA every kernel on the card (CUPTI traces the device,
-            whichever thread launched)."""
+            """Start a torch.profiler trace: CPU ops and the spans of every
+            thread (the executor's too), and with CUDA every kernel on
+            the card."""
             trace_dir = svc.output_dir / "traces"
             if svc._profiler is not None:
                 raise HTTPError(400, "A trace is already in progress")
             activities = [torch.profiler.ProfilerActivity.CPU]
             if svc.models.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
-            svc._profiler = torch.profiler.profile(activities=activities)
+            svc._profiler = torch.profiler.profile(
+                activities=activities,
+                experimental_config=_ExperimentalConfig(profile_all_threads=True))
             svc._profiler.start()
             return json_response({"tracing": True, "dir": str(trace_dir)})
 

@@ -11,6 +11,14 @@ next of a fixed set of batch sizes (:func:`bucket_sizes`) with copies of
 its last item, whose results are dropped: every batch size is a
 signature of its own, a CUDA graph captured once (an XLA compile in the
 JAX package), and the server's warmup captures every bucket.
+
+A caller's ``timings`` dict gets its item's stages, in seconds and in
+order: "batch.wait" (enqueued until its drain's submit starts: the window,
+a drain slot, the executor's queue), the batch's "pipeline.pack" and
+"pipeline.replay", "pipeline.collect_wait" (the submit's end until the
+collect starts: the hop back to the event loop and into the executor
+again), "pipeline.d2h_wait" and "pipeline.unbundle", and
+"job.resume_wait" (the collect's end until the caller runs again).
 """
 
 from __future__ import annotations
@@ -60,6 +68,9 @@ class _Item:
     options: PipelineOptions
     future: asyncio.Future
     want_packed: bool = True
+    timings: "dict | None" = None
+    queued_at: float = dataclasses.field(default_factory=time.perf_counter)
+    collected_at: float = 0.0
 
     @property
     def signature(self) -> Any:
@@ -110,11 +121,17 @@ class BatchingQueue:
         options: PipelineOptions,
         *,
         want_packed: bool = True,
+        timings: "dict | None" = None,
     ) -> PipelineResult:
+        """The item's result; its stages (the module's docstring) add to
+        ``timings`` where given."""
         self._ensure_worker()
         fut = asyncio.get_running_loop().create_future()
-        await self._queue.put(_Item(image, depth_scale, options, fut, want_packed))
-        return await fut
+        item = _Item(image, depth_scale, options, fut, want_packed, timings)
+        await self._queue.put(item)
+        res = await fut
+        metrics.record("job.resume_wait", time.perf_counter() - item.collected_at, timings)
+        return res
 
     async def _run(self) -> None:
         loop = asyncio.get_running_loop()
@@ -183,24 +200,30 @@ class BatchingQueue:
                 )
                 try:
                     t0 = time.perf_counter()
-                    handle = await loop.run_in_executor(
+                    sub0, handle, sub1 = await loop.run_in_executor(
                         None,
-                        lambda: submit(images, depth_scales=scales, options=options),
+                        _timed(lambda: submit(images, depth_scales=scales, options=options)),
                     )
                     t1 = time.perf_counter()
-                    results = await loop.run_in_executor(
+                    col0, results, col1 = await loop.run_in_executor(
                         None,
-                        lambda: self.pipeline.collect(
+                        _timed(lambda: self.pipeline.collect(
                             handle,
                             want_packed=want_packed,
                             # Serving renders paletted PNGs from the gray
                             # preview; skip the RGB lookup.
                             want_preview_rgb=False,
-                        ),
+                        )),
                     )
                     metrics.DRAIN_SUBMIT.observe(t1 - t0)
                     metrics.DRAIN_COLLECT.observe(time.perf_counter() - t1)
+                    metrics.record("pipeline.collect_wait", col0 - sub1)
                     for item, res in zip(items, results):
+                        metrics.record("batch.wait", sub0 - item.queued_at, item.timings)
+                        if item.timings is not None:
+                            item.timings.update(handle.stages)
+                            item.timings["pipeline.collect_wait"] = col0 - sub1
+                        item.collected_at = col1
                         if not item.future.done():
                             item.future.set_result(res)
                 except Exception as e:  # noqa: BLE001 — resolve every waiter
@@ -214,3 +237,15 @@ class BatchingQueue:
             raise
         finally:
             sem.release()
+
+
+def _timed(fn):
+    """``fn`` → a callable returning (its start, its result, its end) on
+    the host's clock, where it runs (an executor thread)."""
+
+    def run():
+        t0 = time.perf_counter()
+        out = fn()
+        return t0, out, time.perf_counter()
+
+    return run

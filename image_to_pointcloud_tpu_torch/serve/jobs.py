@@ -62,13 +62,16 @@ class Job:
         20k-point preview), so both API generations serialize them once
         (~126 ms of host core measured per re-dump) and serve cached
         bytes. Lives in ``extra`` — not journaled, dies with the job.
-        ``render`` is ``to_v1``/``to_v2``-style (called only on miss).
+        ``render`` is ``to_v1``/``to_v2``-style (called only on miss); the
+        render is the span "http.status_body" of the job's timings.
         """
         body = self.extra.get("_status_body")
         if body is None:
+            from image_to_pointcloud_tpu_torch.serve.metrics import span
             from image_to_pointcloud_tpu_torch.serve.rawjson import dumps_raw
 
-            body = dumps_raw(render())
+            with span("http.status_body", self.extra.get("timings")):
+                body = dumps_raw(render())
             self.extra["_status_body"] = body
         return body
 

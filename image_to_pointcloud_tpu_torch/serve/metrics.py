@@ -9,15 +9,25 @@ Prometheus/Grafana stack scrapes.
 
 Thread-safe via a single lock per registry — metric updates are a few
 dict ops, far off the serving hot path's critical section.
+
+The stages of a request or a batch are timed and counted where the work
+runs, by :mod:`image_to_pointcloud_tpu_torch.utils.spans` (whose ``span``
+and ``record`` this module re-exports for the serving code): this
+registry observes every recorded stage into ``ipc_stage_seconds{stage=…}``
+and renders that module's totals as the counters
+``ipc_graph_captures_total``, ``ipc_h2d_bytes_total`` and
+``ipc_d2h_bytes_total``.
 """
 
 from __future__ import annotations
 
 import threading
-import time
 from typing import Iterable
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY"]
+from image_to_pointcloud_tpu_torch.utils import spans
+from image_to_pointcloud_tpu_torch.utils.spans import record, span
+
+__all__ = ["Counter", "Histogram", "MetricsRegistry", "REGISTRY", "record", "span"]
 
 # Latency buckets (seconds) spanning cached-graph requests (~ms) through
 # first-compile requests (minutes).
@@ -72,15 +82,6 @@ class Counter(_Metric):
             yield f"{self.name}{_fmt_labels(dict(key))} {_fmt_value(v)}"
 
 
-class Gauge(Counter):
-    kind = "gauge"
-
-    def set(self, value: float, **labels: str) -> None:
-        key = tuple(sorted(labels.items()))
-        with self._lock:
-            self._values[key] = float(value)
-
-
 class Histogram(_Metric):
     kind = "histogram"
 
@@ -101,21 +102,6 @@ class Histogram(_Metric):
             else:
                 counts[-1] += 1
             self._sums[key] = self._sums.get(key, 0.0) + value
-
-    def time(self, **labels: str):
-        """Context manager observing elapsed wall-clock."""
-        hist = self
-
-        class _Timer:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-                return self
-
-            def __exit__(self, *exc):
-                hist.observe(time.perf_counter() - self.t0, **labels)
-                return False
-
-        return _Timer()
 
     def render(self) -> Iterable[str]:
         for key, counts in sorted(self._counts.items()):
@@ -140,9 +126,6 @@ class MetricsRegistry:
 
     def counter(self, name: str, help_: str = "") -> Counter:
         return Counter(name, help_, self)
-
-    def gauge(self, name: str, help_: str = "") -> Gauge:
-        return Gauge(name, help_, self)
 
     def histogram(self, name: str, help_: str = "", buckets=DEFAULT_BUCKETS) -> Histogram:
         return Histogram(name, help_, self, buckets)
@@ -181,11 +164,43 @@ BATCH_SIZE = REGISTRY.histogram(
 )
 DRAIN_SUBMIT = REGISTRY.histogram(
     "ipc_drain_submit_seconds",
-    "Device dispatch (H2D + launch) time per micro-batch drain",
+    "Device dispatch (pack, H2D, replay) per micro-batch drain, the executor's queue included",
 )
 DRAIN_COLLECT = REGISTRY.histogram(
     "ipc_drain_collect_seconds",
-    "Result collection (device wait + D2H + host assemble) per drain",
+    "Result collection (device wait, D2H, unbundle) per drain, the executor's queue included",
+)
+STAGE_SECONDS = REGISTRY.histogram(
+    "ipc_stage_seconds",
+    "Seconds of each leaf stage of a request or a batch, by stage (the spans)",
+    buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 1.0, 10.0),
+)
+spans.OBSERVERS.append(lambda name, seconds: STAGE_SECONDS.observe(seconds, stage=name))
+
+
+class _Total(_Metric):
+    """A counter whose total :mod:`utils.spans` keeps, so that the
+    pipeline counts without importing the serving layer. Renders from 0."""
+
+    kind = "counter"
+
+    def render(self) -> Iterable[str]:
+        yield f"{self.name} {_fmt_value(spans.total(self.name))}"
+
+
+# Distinct series (not one counter with labels): a reader that sums label
+# sets still tells them apart.
+GRAPH_CAPTURES = _Total(
+    "ipc_graph_captures_total", "CUDA graph captures, of any owner's signatures", REGISTRY
+)
+H2D_BYTES = _Total(
+    "ipc_h2d_bytes_total",
+    "Bytes of the payloads DepthPipeline hands to its graphs (padding rows included)",
+    REGISTRY,
+)
+D2H_BYTES = _Total(
+    "ipc_d2h_bytes_total", "Bytes that DepthPipeline.collect copies from the device", REGISTRY
 )
 
 
