@@ -178,6 +178,16 @@ class PipelineResult:
 
 @dataclasses.dataclass(frozen=True)
 class _Handle:
+    """A submitted batch. ``out`` and ``preview`` are host tensors: on a
+    card, pinned ones that the batch's device→host copy fills, enqueued
+    straight behind the batch's own replay (under the replay lock, so no
+    later replay of another batch or drain lands between them), and
+    ``copied`` is the event recorded after that copy; :meth:`DepthPipeline.
+    collect` waits on it. Enqueued at submit, the copy runs as soon as the
+    batch's forward ends, not behind the forward of the batch submitted
+    next. On the CPU the outputs are the host tensors and ``copied`` is
+    None."""
+
     out: torch.Tensor  # (B, 8, N) f32 packed points, or (B, nbytes) u8 bundle
     preview: torch.Tensor | None  # (B, ph, pw) gray or (B, ph, pw, 3) RGB u8
     quantized: bool
@@ -191,6 +201,7 @@ class _Handle:
     # Seconds of the batch's pipeline stages ("pipeline.pack", "pipeline.replay";
     # collect adds "pipeline.d2h_wait" and "pipeline.unbundle").
     stages: dict
+    copied: "torch.cuda.Event | None" = None
 
 
 def default_quantized_transfer(device: "str | torch.device") -> bool:
@@ -544,6 +555,28 @@ def _clone(out):
     return None if out is None else out.clone()
 
 
+def _tensors(inputs) -> list:
+    """A call's inputs as tensors (a host numpy array without a copy)."""
+    return [torch.from_numpy(np.require(a, requirements=["C", "W"]))
+            if isinstance(a, np.ndarray) else a for a in inputs]
+
+
+def _to_host(out: tuple) -> tuple:
+    """``(copies, event)``: a tuple of outputs (tensors or None) on a
+    card, copied into pinned host tensors from torch's caching host
+    allocator, enqueued on the current stream of their device, and the
+    (timing) event recorded after the copies; outputs on the host as they
+    are, with no event."""
+    dev = next((t.device for t in out if t is not None), None)
+    if dev is None or dev.type != "cuda":
+        return out, None
+    host = tuple(None if t is None else torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 .copy_(t, non_blocking=True) for t in out)
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(dev))
+    return host, event
+
+
 class _CompiledGraph:
     """``fn(*inputs) -> outputs`` of one signature, the port's counterpart
     of one of the JAX package's jitted functions; ``run(*tensors)`` is the
@@ -573,11 +606,18 @@ class _CompiledGraph:
     input on the device, into its static input, replays the graph and
     returns fresh copies of its static outputs: two calls may be in flight
     before either is read, and the JAX package's executables return new
-    buffers on every call. The copies in, the replay and the copies out
-    hold the replay lock of the owner's graphs on that device, and a
-    replay waits for their previous one on the card: they share one pool,
-    so no two of their replays may overlap. Each replay counts the hand
-    kernels' launches it replays (``cuda.replayed``)."""
+    buffers on every call. A call returns them on the device;
+    :meth:`to_host` (what :class:`DepthPipeline`'s submits call) copies the
+    static outputs straight into pinned host memory instead, with no
+    device copy, and returns the event after that copy. The copies in,
+    the replay and the copies out hold the replay lock of the owner's
+    graphs on that device, and a replay waits for their previous one on
+    the card (the event recorded after the copies out): they share one
+    pool, so no two of their replays may overlap, and a replay cannot
+    overwrite the static outputs before they are copied. So a batch's copy
+    to the host follows its own replay on the stream, before any later
+    replay, and runs as soon as its forward ends. Each replay counts the
+    hand kernels' launches it replays (``cuda.replayed``)."""
 
     def __init__(self, owner: "_GraphOwner", key: tuple, run, device: "torch.device | None" = None):
         self.owner, self.key, self.run = owner, key, run
@@ -589,11 +629,26 @@ class _CompiledGraph:
         self.capture_s: float | None = None  # wall seconds of the warm-up and capture
 
     def __call__(self, *inputs):
-        args = [torch.from_numpy(np.require(a, requirements=["C", "W"]))
-                if isinstance(a, np.ndarray) else a for a in inputs]
-        owner = self.owner
-        if not owner.cuda_graphs:
+        args = _tensors(inputs)
+        if not self.owner.cuda_graphs:
             return self.run(*args)
+        return self._replay(self._staged(args))
+
+    def to_host(self, *inputs) -> tuple:
+        """``(outputs, event)``: the call's outputs on the host and the
+        event after their copy (:func:`_to_host`). A replay on a card
+        enqueues the copy of its static outputs under the replay lock,
+        before the event the next replay waits on; an eager body's outputs
+        on a card are copied behind it; on the CPU, the outputs and None."""
+        if self.owner.cuda_graphs and self.device.type == "cuda":
+            return self._replay(self._staged(_tensors(inputs)), host=True)
+        return _to_host(self(*inputs))
+
+    def _staged(self, args: list) -> list:
+        """The inputs staged for a replay (host ones in pinned memory), the
+        graph captured on the first call and the inputs checked against
+        its signature."""
+        owner = self.owner
         staged = [a.pin_memory() if a.device.type == "cpu" else a for a in args]
         if self.graph is None:
             with owner._build_lock:
@@ -604,7 +659,7 @@ class _CompiledGraph:
             raise ValueError(
                 f"inputs {[(tuple(s.shape), s.dtype) for s in staged]} do not match the "
                 f"signature {self.key}'s {[(tuple(t.shape), t.dtype) for t in self.static_in]}")
-        return self._replay(staged)
+        return staged
 
     def _capture(self, staged: list) -> None:
         owner, dev = self.owner, self.device
@@ -646,7 +701,9 @@ class _CompiledGraph:
         self.capture_s = time.perf_counter() - t0
         self.graph = graph  # last: a caller that sees the graph sees the rest
 
-    def _replay(self, staged: list):
+    def _replay(self, staged: list, host: bool = False):
+        """The replay, and its outputs: fresh device copies, or with
+        ``host`` the (host copies, event) of :func:`_to_host`."""
         shared = self.owner._on_device(self.device)
         with shared.replay_lock, torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device)
@@ -656,7 +713,7 @@ class _CompiledGraph:
             for t, s in zip(self.static_in, staged):
                 t.copy_(s, non_blocking=True)
             self.graph.replay()
-            out = _clone(self.static_out)
+            out = _to_host(self.static_out) if host else _clone(self.static_out)
             shared.replay_done.record(stream)
         cuda.replayed(self.launches)
         return out
@@ -681,6 +738,11 @@ class _SlotGraphs:
         per = payload.shape[0] // len(self.slots)
         return self.owner._gather([fn(payload[d * per : (d + 1) * per])
                                    for d, fn in enumerate(self.slots)])
+
+    def to_host(self, payload: np.ndarray) -> tuple:
+        """``(outputs, event)``: the gathered outputs copied to the host
+        behind the gather on the first slot (:func:`_to_host`)."""
+        return _to_host(self(payload))
 
     @property
     def graph(self) -> "tuple | None":
@@ -1043,10 +1105,13 @@ class DepthPipeline(_GraphOwner):
         return torch.cat(parts, dim=1)
 
     def _handle(self, out, prev, in_hw, options, depth_scales, b, imgs=None, host_rgb=None,
-                stages=None):
+                stages=None, copied=None):
         """The handle of a submitted batch, its outputs cut back to the
         ``b`` real rows (a mesh pads a batch to its data slots);
-        ``stages``, its submit's."""
+        ``stages``, its submit's; ``copied``, the event after the outputs'
+        copy to the host (outputs still on a card are copied here)."""
+        if copied is None:
+            (out, prev), copied = _to_host((out, prev))
         if out.shape[0] != b:
             out, prev = out[:b], None if prev is None else prev[:b]
         h, w = _proc_hw(*in_hw)
@@ -1054,6 +1119,7 @@ class DepthPipeline(_GraphOwner):
         return _Handle(
             out, prev, self.quantized_transfer, (-(-h // step), -(-w // step)), (h, w),
             step, options.fov, depth_scales, imgs, host_rgb, {} if stages is None else stages,
+            copied,
         )
 
     # ---------- the signature cache ----------
@@ -1195,17 +1261,20 @@ class DepthPipeline(_GraphOwner):
             run_scales = np.concatenate([scales, scales[-1:].repeat(pad)]) if pad else scales
             fn = self.compiled_graph(b + pad, (h0, w0), options, want_preview)
             payload = self.pack_payload(run_imgs, run_scales)
-        out, prev = self._launch(fn, payload, stages)
-        return self._handle(out, prev, (h0, w0), options, scales, b, imgs=imgs, stages=stages)
+        (out, prev), copied = self._launch(fn, payload, stages)
+        return self._handle(out, prev, (h0, w0), options, scales, b, imgs=imgs, stages=stages,
+                            copied=copied)
 
     @staticmethod
     def _launch(fn, payload: np.ndarray, stages: dict):
-        """``fn(payload)`` as the batch's "pipeline.replay" stage: the
-        pinned staging, the copy in and the replay (or the eager body
-        where no graphs run). Counts the payload's bytes to the device."""
+        """``fn.to_host(payload)`` as the batch's "pipeline.replay" stage:
+        the pinned staging, the copy in, the replay and the copy out
+        enqueued behind it (or the eager body where no graphs run), →
+        ((out, preview), event). Counts the payload's bytes to the
+        device."""
         spans.count("ipc_h2d_bytes_total", payload.nbytes)
         with spans.span("pipeline.replay", stages):
-            return fn(payload)
+            return fn.to_host(payload)
 
     @staticmethod
     def pack_jpeg_payload(jpegs: "list[JpegInput]", depth_scales: np.ndarray) -> np.ndarray:
@@ -1305,9 +1374,9 @@ class DepthPipeline(_GraphOwner):
                 payload = self.pack_jpeg_sparse_payload(run, run_scales, *caps)
             else:
                 payload = self.pack_jpeg_payload(run, run_scales)
-        out, prev = self._launch(fn, payload, stages)
+        (out, prev), copied = self._launch(fn, payload, stages)
         return self._handle(out, prev, (spec.height, spec.width), options, scales, b,
-                            host_rgb=host_rgb, stages=stages)
+                            host_rgb=host_rgb, stages=stages, copied=copied)
 
     def collect(
         self,
@@ -1317,15 +1386,28 @@ class DepthPipeline(_GraphOwner):
         want_packed: bool = True,
         want_preview_rgb: bool = True,
     ) -> list[PipelineResult]:
-        """Bring a submitted batch to the host and split it per image.
+        """Wait for a submitted batch on the host and split it per image.
         ``want_preview_rgb=False`` skips the host PLASMA lookup for callers
         that render the gray preview themselves. Its stages, "pipeline.d2h_wait"
         (the wait for the device and the copies) and "pipeline.unbundle"
-        (the split into clouds), add to ``handle.stages``."""
+        (the split into clouds), add to ``handle.stages``.
+
+        The batch's device→host copy was enqueued at submit, behind the
+        batch's own replay (:class:`_Handle`), so the wait here is on the
+        event after that copy, never behind a batch submitted later. A
+        collect of a batch copied from a card counts
+        ``ipc_d2h_collects_total``, and ``ipc_d2h_ready_total`` too where
+        the copy had already completed when the collect began."""
         prev = handle.preview if want_preview else None
+        if handle.copied is not None:
+            spans.count("ipc_d2h_collects_total")
+            if handle.copied.query():
+                spans.count("ipc_d2h_ready_total")
         with spans.span("pipeline.d2h_wait", handle.stages):
-            out = handle.out.cpu().numpy()  # the batch's one device→host copy
-            prev_np = None if prev is None else prev.cpu().numpy()
+            if handle.copied is not None:
+                handle.copied.synchronize()
+            out = handle.out.numpy()
+            prev_np = None if prev is None else prev.numpy()
         spans.count("ipc_d2h_bytes_total", out.nbytes + (0 if prev_np is None else prev_np.nbytes))
         with spans.span("pipeline.unbundle", handle.stages):
             prev_gray = None

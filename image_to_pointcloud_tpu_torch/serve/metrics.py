@@ -15,8 +15,9 @@ runs, by :mod:`image_to_pointcloud_tpu_torch.utils.spans` (whose ``span``
 and ``record`` this module re-exports for the serving code): this
 registry observes every recorded stage into ``ipc_stage_seconds{stage=…}``
 and renders that module's totals as the counters
-``ipc_graph_captures_total``, ``ipc_h2d_bytes_total`` and
-``ipc_d2h_bytes_total``.
+``ipc_graph_captures_total``, ``ipc_h2d_bytes_total``,
+``ipc_d2h_bytes_total``, ``ipc_d2h_collects_total`` and
+``ipc_d2h_ready_total``.
 """
 
 from __future__ import annotations
@@ -201,6 +202,16 @@ H2D_BYTES = _Total(
 )
 D2H_BYTES = _Total(
     "ipc_d2h_bytes_total", "Bytes that DepthPipeline.collect copies from the device", REGISTRY
+)
+D2H_COLLECTS = _Total(
+    "ipc_d2h_collects_total",
+    "DepthPipeline.collect calls on a batch whose outputs were copied from a device",
+    REGISTRY,
+)
+D2H_READY = _Total(
+    "ipc_d2h_ready_total",
+    "Of those, the collects whose copy had completed when the collect began",
+    REGISTRY,
 )
 
 

@@ -286,6 +286,60 @@ def test_compiled_graph_jpeg_sparse_and_dense(da_pair):
         _assert_slice_agrees(a, b)
 
 
+# ---------- batches in flight: submit, then collect ----------
+
+
+def _assert_same_results(got, ref):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        for name in ("points", "colors", "packed", "depth_preview_rgb", "depth_preview_gray"):
+            a, b = getattr(g, name), getattr(r, name)
+            assert (a is None) == (b is None), name
+            if a is not None:
+                np.testing.assert_array_equal(a, b, err_msg=name)
+        assert (g.raw_point_count, g.kept_point_count, g.grid_hw) == (
+            r.raw_point_count, r.kept_point_count, r.grid_hw)
+
+
+@pytest.mark.parametrize("ingest", ["pixel", "jpeg"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_batches_in_flight_collect_in_either_order(da_pair, ingest, quantized):
+    """Two batches submitted before either is collected, then collected in
+    either order, give the bits of each batch run alone. On the CPU the
+    outputs are host tensors already: a collect counts no device copy
+    (``ipc_d2h_collects_total``, ``ipc_d2h_ready_total``), and
+    ``ipc_d2h_bytes_total`` counts the bundle and the preview it reads."""
+    from image_to_pointcloud_tpu_torch.utils import spans
+
+    pipe = graph.DepthPipeline(da_pair[2], model_target=56, quantized_transfer=quantized)
+    scales = [np.array([15.0, 4.0], np.float32), np.array([9.5], np.float32)]
+    if ingest == "pixel":
+        batches = [_images(11, 2), _images(12, 1)]
+        ref = [pipe.run_batch(x, depth_scales=s) for x, s in zip(batches, scales)]
+
+        def submit(i):
+            return pipe.submit_batch(batches[i], depth_scales=scales[i])
+    else:
+        batches = [[_plans(_jpeg(s))[1] for s in (13, 14)], [_plans(_jpeg(15))[1]]]
+
+        def submit(i):
+            return pipe.submit_batch_jpeg(batches[i], depth_scales=scales[i])
+
+        ref = [pipe.collect(submit(i)) for i in range(2)]
+    names = ("ipc_d2h_collects_total", "ipc_d2h_ready_total", "ipc_d2h_bytes_total")
+    for order in ((0, 1), (1, 0)):
+        handles = [submit(i) for i in range(2)]
+        for i in order:
+            before = {k: spans.total(k) for k in names}
+            _assert_same_results(pipe.collect(handles[i]), ref[i])
+            h = handles[i]
+            assert h.copied is None and not h.out.is_pinned()
+            assert spans.total("ipc_d2h_collects_total") == before["ipc_d2h_collects_total"]
+            assert spans.total("ipc_d2h_ready_total") == before["ipc_d2h_ready_total"]
+            copied = h.out.numpy().nbytes + h.preview.numpy().nbytes
+            assert spans.total("ipc_d2h_bytes_total") - before["ipc_d2h_bytes_total"] == copied
+
+
 # ---------- the queue and the warmup ----------
 
 
