@@ -32,6 +32,7 @@ def main(argv=None) -> int:
 
     from portbench import spec, synth
     from portbench.compare import compare_cloud, reduce_numbers
+    from portbench.reference.model import family
     from portbench.reference.pipeline import reference_cloud
     from portbench.run import scale_and_density
     from portbench.weights import make_state_dict, seeded_manager
@@ -50,7 +51,7 @@ def main(argv=None) -> int:
             from image_to_pointcloud_tpu_torch.pipeline.graph import PipelineOptions
 
             pipe = seeded_manager(make_state_dict(cfg, seed, "cuda", dtype), "cuda",
-                                  model_target=cfg["preprocess"]["target"]).get(cfg["preset"])
+                                  model_target=family(cfg["arch"]).model_target(cfg)).get(cfg["preset"])
             batch = tr.get("batch", 1)
             opts = PipelineOptions(**tr.get("options", {"density": density}))
             served = []

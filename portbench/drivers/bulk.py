@@ -44,6 +44,7 @@ def run(ctx: dict) -> dict:
 
     from image_to_pointcloud_tpu_torch.pipeline.graph import PipelineOptions
     from portbench.drivers import build_program
+    from portbench.reference.model import family
     from portbench.weights import make_state_dict, seeded_manager
 
     tr, seed, log, cfg = ctx["traffic"], ctx["seed"], ctx["log"], ctx["cfg"]
@@ -52,7 +53,7 @@ def run(ctx: dict) -> dict:
     log(f"first-run build {build_s:.3f} s (0 where the checkout had it)")
     dtype = getattr(torch, cfg["dtype"]) if cuda else torch.float32
     manager = seeded_manager(make_state_dict(cfg, seed, ctx["device"], dtype), ctx["device"],
-                             model_target=cfg["preprocess"]["target"])
+                             model_target=family(cfg["arch"]).model_target(cfg))
     pipe = manager.get(cfg["preset"])
     h, w = tr["frame_hw"]
     frames = synth.frames(seed, tr["distinct_frames"], h, w)

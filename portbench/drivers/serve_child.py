@@ -25,6 +25,7 @@ def main() -> None:
     params = json.loads(sys.argv[1])
     import torch
 
+    from portbench.reference.model import family
     from portbench.weights import make_state_dict, seeded_manager
 
     cfg = json.loads(open(params["config"]).read())
@@ -43,7 +44,7 @@ def main() -> None:
     sd = make_state_dict(cfg, params["seed"], device, dtype)
     app = create_v1_app(
         output_dir=params["out_dir"],
-        models=seeded_manager(sd, device, model_target=cfg["preprocess"]["target"]),
+        models=seeded_manager(sd, device, model_target=family(cfg["arch"]).model_target(cfg)),
         warmup_sizes=[tuple(s) for s in srv["warmup"]],
         batch_window_ms=srv["batch_window_ms"],
         max_batch=srv["max_batch"],

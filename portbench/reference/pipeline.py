@@ -1,10 +1,13 @@
-"""The reference of one upload's point cloud: preprocess → model →
-depth upscale → robust normalization → strided unprojection → outlier
-keep → the bundle's quantized depth → the host's reconstruction. The
-points it keeps are the served PLY's, in grid order.
+"""The reference of one upload's point cloud: the family's input handling
+→ its model → its output handling (``portbench/reference/families/``),
+then one tail for every family: depth upscale → robust normalization →
+strided unprojection → outlier keep → the bundle's quantized depth → the
+host's reconstruction. The points it keeps are the served PLY's, in grid
+order.
 
 Runs in f32 with TF32 off on CUDA; ``fp8=True`` is the control (the model
-in float8 e4m3, see :mod:`.model`). Imports nothing of the port.
+in float8 e4m3, :class:`portbench.reference.vit_dpt.Ops`). Imports
+nothing of the port.
 """
 
 from __future__ import annotations
@@ -15,12 +18,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from portbench.reference import model as ref_model
+from portbench.reference.model import family
 from portbench.reference.ops import (
     dequantized_points,
     normalize_depth,
     outlier_keep,
-    processor_size,
     quantize_depth,
     resize_planes,
     unproject_grid,
@@ -58,19 +60,15 @@ def reference_cloud(image: np.ndarray, sd: dict, cfg: dict, *, depth_scale: floa
                     density: str, fp8: bool = False) -> Cloud:
     """(H, W, 3) u8 RGB upload → its reference :class:`Cloud`. ``sd`` holds
     f32 weights on the device the reference runs on."""
-    arch, pre = cfg["arch"], cfg["preprocess"]
+    fam = family(cfg["arch"])
     dev = next(iter(sd.values())).device
     h, w = image.shape[:2]
     if max(h, w) > 3072:
         raise ValueError("the reference covers uploads of at most 3072 pixels a side")
-    mh, mw = processor_size(h, w, pre["target"], pre["multiple"], pre["keep_aspect_ratio"])
-    img = torch.from_numpy(np.array(image)).to(dev).float()
-    x = resize_planes(img.permute(2, 0, 1), (mh, mw), pre["resize"]).permute(1, 2, 0)
-    mean = torch.tensor(pre["mean"], dtype=torch.float32, device=dev)
-    std = torch.tensor(pre["std"], dtype=torch.float32, device=dev)
-    x = (x * (1.0 / 255.0) - mean) / std
+    x = fam.model_input(torch.from_numpy(np.array(image)).to(dev).float(), cfg)
     with exact_f32():
-        depth = ref_model.forward(sd, arch, x[None], fp8=fp8)[0]
+        depth = fam.forward(sd, cfg["arch"], x[None], fp8=fp8)[0]
+    depth = fam.model_output(depth, cfg, h, w)
     dn = normalize_depth(resize_planes(depth, (h, w), "linear"), invert=True)
     step = DENSITY_STEP[density]
     dn_s = dn[::step, ::step]
