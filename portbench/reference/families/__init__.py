@@ -6,7 +6,8 @@ A family module imports nothing of the port and no JAX, and provides:
 * ``param_specs(arch)`` → ``[(name, shape, init kind, fan-in)]``, every
   parameter of the served model under its served name, in the order
   ``portbench/weights.py`` draws them (kinds: ``lecun``, ``lecun_abs``,
-  ``zeros``, ``ones``, ``normal``);
+  ``zeros``, ``ones``, ``normal``, and ``softplus_ramp``, whose fan-in
+  slot holds the (low, high) ends of the ramp its softplus makes);
 * ``forward(sd, arch, pixels, *, fp8=False)``: (B, mh, mw, 3) model input
   → (B, oh, ow) f32 depth, TF32 off by the caller; ``fp8=True`` is the
   control (every matrix product in float8 e4m3,
@@ -23,5 +24,12 @@ A family module imports nothing of the port and no JAX, and provides:
 * ``model_grid(cfg, h, w)``: the patch grid an (h, w) upload reaches the
   encoder at;
 * ``flops_per_image(cfg, h, w)``: the model's FLOPs an (h, w) upload, by
-  the conventions of ``portbench/flops.py``.
+  the conventions of ``portbench/flops.py``;
+* ``port_fields(cfg)`` → ``[(path, value)]``: what the state dict's shapes
+  do not show (taps, norm epsilon, windows, bin settings, the processor's
+  constants), each as a dotted attribute path on the port's preset config
+  (``preset(cfg["preset"])``) and the value the configuration gives it; a
+  sequence compares as a tuple. ``portbench/tests`` checks every pair, and
+  the served state dict against ``param_specs`` name for name and shape
+  for shape.
 """

@@ -5,7 +5,8 @@ DPT processor's keep-aspect, multiple-of-14 input (arXiv:2406.09414)."""
 from __future__ import annotations
 
 from portbench.reference import vit_dpt
-from portbench.reference.vit_dpt import model_grid, model_input, model_output, model_target  # noqa: F401
+from portbench.reference.vit_dpt import (  # noqa: F401
+    model_grid, model_input, model_output, model_target, port_fields)
 
 
 def param_specs(arch: dict) -> list:

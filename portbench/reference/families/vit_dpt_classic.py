@@ -6,7 +6,8 @@ processor's fixed square input (arXiv:2103.13413)."""
 from __future__ import annotations
 
 from portbench.reference import vit_dpt
-from portbench.reference.vit_dpt import model_grid, model_input, model_output, model_target  # noqa: F401
+from portbench.reference.vit_dpt import (  # noqa: F401
+    model_grid, model_input, model_output, model_target, port_fields)
 
 
 def param_specs(arch: dict) -> list:

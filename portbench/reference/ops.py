@@ -99,9 +99,11 @@ def resize_planes(x: torch.Tensor, out_hw, method: str) -> torch.Tensor:
     return wr @ x @ wc.T
 
 
-def processor_size(h: int, w: int, target: int, multiple: int, keep_aspect: bool):
-    """The DPT processors' resize target (keep-aspect, multiple-of-N)."""
-    sh, sw = target / h, target / w
+def processor_size(h: int, w: int, target, multiple: int, keep_aspect: bool):
+    """The DPT and ZoeDepth processors' resize target (keep-aspect,
+    multiple-of-N) toward ``target``, a side or an (h, w) pair."""
+    th, tw = (target, target) if isinstance(target, int) else target
+    sh, sw = th / h, tw / w
     if keep_aspect:
         if abs(1 - sw) < abs(1 - sh):
             sh = sw

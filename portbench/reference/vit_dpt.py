@@ -174,14 +174,18 @@ def _residual_unit(o: Ops, x, name):
     return x + o.conv(torch.relu(o.conv(torch.relu(x), f"{name}.conv1")), f"{name}.conv2")
 
 
-def _fusion(o: Ops, j: int, x, residual=None, out_hw=None):
+def fusion(o: Ops, j: int, x, residual=None, out_hw=None, prefix: str = "neck."):
+    """The DPT fusion stage ``j`` (RefineNet): the residual resized to x
+    (half-pixel bilinear) through its unit, x's unit, the align-corners
+    ×2 (or ``out_hw``) upsampling, the 1×1 projection."""
+    name = f"{prefix}fusion{j}"
     if residual is not None:
         if residual.shape[-2:] != x.shape[-2:]:
             residual = resize_planes(residual, tuple(x.shape[-2:]), "linear")
-        x = x + _residual_unit(o, residual, f"neck.fusion{j}.res1")
-    x = _residual_unit(o, x, f"neck.fusion{j}.res2")
+        x = x + _residual_unit(o, residual, f"{name}.res1")
+    x = _residual_unit(o, x, f"{name}.res2")
     out_hw = out_hw or (x.shape[-2] * 2, x.shape[-1] * 2)
-    return o.conv(resize_planes(x, tuple(out_hw), "linear_ac"), f"neck.fusion{j}.projection")
+    return o.conv(resize_planes(x, tuple(out_hw), "linear_ac"), f"{name}.projection")
 
 
 def _neck(o: Ops, arch: dict, maps: list[torch.Tensor], ph: int, pw: int, classic: bool) -> torch.Tensor:
@@ -200,7 +204,7 @@ def _neck(o: Ops, arch: dict, maps: list[torch.Tensor], ph: int, pw: int, classi
     fused = None
     for j, hs in enumerate(rev):
         nxt = None if classic or j == len(rev) - 1 else tuple(rev[j + 1].shape[-2:])
-        fused = _fusion(o, j, hs, out_hw=nxt) if fused is None else _fusion(o, j, fused, hs, out_hw=nxt)
+        fused = fusion(o, j, hs, out_hw=nxt) if fused is None else fusion(o, j, fused, hs, out_hw=nxt)
     x = o.conv(fused, "neck.head_conv1")
     size = (x.shape[-2] * 2, x.shape[-1] * 2) if classic else (ph * arch["patch_size"], pw * arch["patch_size"])
     x = o.conv(torch.relu(o.conv(resize_planes(x, size, "linear_ac"), "neck.head_conv2")), "neck.head_conv3")
@@ -258,6 +262,22 @@ def model_grid(cfg: dict, h: int, w: int) -> tuple[int, int]:
     p = cfg["arch"]["patch_size"]
     mh, mw = _model_size(cfg, h, w)
     return mh // p, mw // p
+
+
+# ---------- the port's preset ----------
+
+
+def port_fields(cfg: dict) -> list[tuple[str, object]]:
+    """What the state dict's shapes do not show, on the port's preset
+    config: the encoder's widths, depth, heads, patch, native position
+    grid, MLP ratio (``intermediate_size`` over ``hidden_size``), taps
+    (0-indexed) and norm epsilon."""
+    a = cfg["arch"]
+    return [("backbone.hidden_size", a["hidden_size"]), ("backbone.num_layers", a["num_hidden_layers"]),
+            ("backbone.num_heads", a["num_attention_heads"]), ("backbone.patch_size", a["patch_size"]),
+            ("backbone.pos_embed_size", a["pos_embed_size"]),
+            ("backbone.mlp_ratio", a["intermediate_size"] / a["hidden_size"]),
+            ("backbone.out_layers", a["out_indices"]), ("backbone.layer_norm_eps", a["layer_norm_eps"])]
 
 
 # ---------- FLOPs (the conventions of portbench/flops.py) ----------

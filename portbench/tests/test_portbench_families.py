@@ -31,7 +31,7 @@ from portbench.weights import make_state_dict
 
 SEED = 2**31 + 2021
 INTERFACE = ("param_specs", "forward", "model_input", "model_output", "model_target", "model_grid",
-             "flops_per_image")
+             "flops_per_image", "port_fields")
 
 # Read from the harness before the family modules (sha256, first 16 hex digits).
 PARAMS = {"dav2-small-bf16": "b2a8f9a4a3efce43", "dpt-large-bf16": "01863fdfd640bbf7",

@@ -9,7 +9,9 @@ import pytest
 
 from portbench import spec
 from portbench.compare import NUMBERS
-from portbench.reference.model import param_specs
+from portbench.port_check import port_mismatches
+from portbench.reference import vit_dpt
+from portbench.reference.model import family
 
 BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -68,26 +70,33 @@ def test_benchmark_shape():
         assert cfg["reduced"] == c["reduced"] == []
 
 
+def _config(name: str) -> dict:
+    c = next(x for x in BENCH["configs"] if x["name"] == name)
+    return json.loads((spec.ROOT / c["file"]).read_text())
+
+
 @pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
 def test_config_matches_the_port(config):
-    """The configuration's widths are the served preset's, and its
-    parameters are the served model's, name for name and shape for shape."""
-    import torch
+    """The configuration's parameters are the served model's, name for
+    name and shape for shape, and every field its family names
+    (``port_fields``) is the served preset's."""
+    assert port_mismatches(_config(config)) == []
 
-    from image_to_pointcloud_tpu_torch.models.depth_anything import build_model, preset
 
-    c = next(x for x in BENCH["configs"] if x["name"] == config)
-    cfg = json.loads((spec.ROOT / c["file"]).read_text())
-    with torch.device("meta"):
-        model = build_model(preset(cfg["preset"]))
-    ours = {n: tuple(s) for n, s, _, _ in param_specs(cfg["arch"])}
-    theirs = {n: tuple(t.shape) for n, t in model.state_dict().items()}
-    assert ours == theirs
-    pcfg = preset(cfg["preset"])
-    bb = pcfg.backbone
-    a = cfg["arch"]
-    assert (bb.hidden_size, bb.num_layers, bb.num_heads, bb.patch_size, bb.pos_embed_size) == (
-        a["hidden_size"], a["num_hidden_layers"], a["num_attention_heads"], a["patch_size"],
-        a["pos_embed_size"])
-    assert bb.hidden_size * bb.mlp_ratio == a["intermediate_size"]
-    assert tuple(bb.out_layers) == tuple(a["out_indices"]) and bb.layer_norm_eps == a["layer_norm_eps"]
+# Chosen by the function a family runs, not by its name.
+VIT_CONFIGS = [c["name"] for c in BENCH["configs"]
+               if family(_config(c["name"])["arch"]).port_fields is vit_dpt.port_fields]
+
+
+@pytest.mark.parametrize("config", VIT_CONFIGS)
+def test_vit_port_fields_are_the_eight_encoder_checks(config):
+    """A ViT + DPT configuration is held to the encoder's widths, depth,
+    heads, patch, native position grid, MLP width, taps and norm epsilon,
+    each against the value its ``arch`` gives."""
+    a = _config(config)["arch"]
+    assert dict(vit_dpt.port_fields(_config(config))) == {
+        "backbone.hidden_size": a["hidden_size"], "backbone.num_layers": a["num_hidden_layers"],
+        "backbone.num_heads": a["num_attention_heads"], "backbone.patch_size": a["patch_size"],
+        "backbone.pos_embed_size": a["pos_embed_size"],
+        "backbone.mlp_ratio": a["intermediate_size"] / a["hidden_size"],
+        "backbone.out_layers": a["out_indices"], "backbone.layer_norm_eps": a["layer_norm_eps"]}

@@ -6,7 +6,8 @@ The distributions are a frozen copy of the served models' random init
 LeCun weights for matrix products and convolutions (variance 1/fan-in,
 cut at ±2σ), the last head convolution's absolute value, zero biases,
 unit norms and LayerScale, N(0, 0.02) class token and position
-embeddings. They are drawn in two calls on the device's generator and
+embeddings; a family may ask for a bias whose softplus is an even ramp
+(``softplus_ramp``, ZoeDepth's seed bin centres). They are drawn in two calls on the device's generator and
 cast once to the served dtype, so every run of one seed on one device
 gets the same numbers, and the program and the reference the same state
 dict.
@@ -46,6 +47,9 @@ def make_state_dict(cfg: dict, seed: int, device, dtype=torch.bfloat16) -> dict:
         elif kind == "normal":
             dst.copy_(normal[on:on + n])
             on += n
+        elif kind == "softplus_ramp":  # fan_in holds the ramp's ends
+            c = torch.linspace(*fan_in, n, device=device)
+            dst.copy_(c + torch.log(-torch.expm1(-c)))
         else:
             dst.fill_(1.0 if kind == "ones" else 0.0)
         off += n
