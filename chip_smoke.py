@@ -50,6 +50,13 @@ Phases (any failure exits non-zero, and the result lines are not printed):
    a 2-point grid; timed at (1, 518, 518) step 2 with both image types
    beside the bound and the launch floor (a one-element ``zero_()`` on
    the same harness).
+5b. the depthnorm kernel vs its plain version run on the CPU, bit for
+   bit, on the CPU tests' special planes (NaN and ±inf, signed zeros at
+   the percentile ranks, ties, constant, all-non-finite, smooth) at (1,
+   37, 45), (1, 518, 518) and all in one batch at (16, 384, 384) and
+   (16, 518, 518); timed at (16, 518, 518), (16, 384, 384) and (1, 518,
+   518) on smooth depth maps, each timed call's output checked bit for
+   bit too, beside its bytes bound and the plain version on the card.
 6. the transfer codecs on the card vs the CPU, byte for byte.
 7. the JPEG device decode of a q88 4:2:0 518² frame: sparse vs dense
    payload bit for bit, card vs CPU within 1 level, vs PIL within 3.
@@ -726,6 +733,68 @@ def phase_k3() -> dict:
     return {**timed["f32"], "launch_floor_ms": floor, "also": [timed["u8"]]}
 
 
+# depthnorm's timed shapes: DPT-Large's bulk batch at the working size and
+# at its 384² preview, and one served 518² request.
+DEPTHNORM_TIMED = [(16, 518, 518), (16, 384, 384), (1, 518, 518)]
+
+
+def phase_depthnorm() -> dict:
+    """The depthnorm kernel against its plain version run on the CPU, bit
+    for bit, on the CPU tests' special planes (each alone at 37×45 and
+    518², all in one batch of 16 at every batch shape of ``DEPTHNORM_TIMED``);
+    timed at ``DEPTHNORM_TIMED`` on smooth depth maps beside its bound (the
+    planes read once, written once) and the plain version on the card (its
+    two key sorts a batch), its output checked bit for bit there too."""
+    from pathlib import Path
+
+    from image_to_pointcloud_tpu_torch.ops.depthnorm import (
+        normalize_depth_cuda,
+        normalize_depth_plain,
+    )
+
+    # The tests' planes, with the tests directory on the path as pytest puts
+    # it (an installed package named ``tests`` may shadow the checkout's).
+    tests_dir = str(Path(__file__).resolve().parent / "tests")
+    sys.path.insert(0, tests_dir)
+    try:
+        from torch_depth_cases import NORMALIZE_CASES, depth_planes
+    finally:
+        sys.path.remove(tests_dir)
+
+    rng = np.random.default_rng(23)
+    cases = [c for c in NORMALIZE_CASES if c != "batch3"]
+    for b, h, w in [(1, 37, 45), (1, 518, 518), (16, 384, 384), (16, 518, 518)]:
+        planes = [depth_planes(rng, c, (h, w))[0] for c in cases]
+        groups = [[p] for p in planes] if b == 1 else [[planes[i % len(planes)] for i in range(b)]]
+        for invert in (True, False):
+            for group in groups:
+                x = torch.from_numpy(np.stack(group).reshape(len(group), -1))
+                got = normalize_depth_cuda(x.cuda(), invert)
+                torch.cuda.synchronize()
+                if not torch.equal(got.cpu().view(torch.int32),
+                                   normalize_depth_plain(x, invert).view(torch.int32)):
+                    raise AssertionError(f"depthnorm disagrees with its plain version at "
+                                         f"{(len(group), h, w)} invert {invert}")
+        log(f"depthnorm ({b}, {h}, {w}): bit-identical to the plain version on the CPU on "
+            f"{len(cases)} kinds of plane, invert and not")
+    timed = {}
+    for b, h, w in DEPTHNORM_TIMED:
+        x = torch.from_numpy(np.stack([depth_planes(rng, "smooth", (h, w))[0]
+                                       for _ in range(b)]).reshape(b, -1)).cuda()
+        if not torch.equal(normalize_depth_cuda(x).cpu().view(torch.int32),
+                           normalize_depth_plain(x.cpu()).view(torch.int32)):
+            raise AssertionError(f"depthnorm disagrees with its plain version at {(b, h, w)}, smooth")
+        nbytes = 2 * x.numel() * 4
+        res = {"shape": [b, h, w],
+               **_timed_kernel(f"depthnorm ({b}, {h}, {w})", lambda: normalize_depth_cuda(x),
+                               lambda: normalize_depth_plain(x)),
+               **bound(nbytes, 0, F32_FLOP_S)}
+        log(f"depthnorm ({b}, {h}, {w}): {nbytes / 1e6:.2f} MB: bound {res['bound_ms']:.5f} ms "
+            f"({res['bound_by']}), {res['bound_ms'] / res['ms'] * 100:.1f} % of it")
+        timed[f"{b}x{h}x{w}"] = res
+    return {**timed["16x518x518"], "also": [timed["16x384x384"], timed["1x518x518"]]}
+
+
 def phase_codecs() -> None:
     from image_to_pointcloud_tpu_torch.pipeline import transfer
 
@@ -1330,25 +1399,28 @@ def phase_cli(out_dir: str) -> tuple[dict[str, int], dict[str, dict[str, float]]
         (d / f"{name}.png").write_bytes(encode_png(img))
     f = {name: str(d / f"{name}.png") for name in src}
     frames = [f[f"f{i}"] for i in range(4)]
-    # (run, argv, (K1, K2, K3) launches). HighRes: the anchor pass and the
-    # nine 518² tiles of a 1024² frame, one forward each (24 K1), the
-    # depth grid to the host (no K3). Video: four frames in one forward;
-    # --voxel unprojects them on the card in one K3 launch.
+    # (run, argv, (K1, K2, K3, depthnorm) launches). HighRes: the anchor
+    # pass and the nine 518² tiles of a 1024² frame, one forward each (24
+    # K1), the depth grid to the host (no K3), the blended frame normalized
+    # once. Video: four frames in one forward, one normalize; --voxel
+    # unprojects them on the card in one K3 launch. Metric: no normalize.
     runs = [
-        ("highres", ["highres", f["big"], "-o", str(d / "highres.ply")], (24, 0, 0)),
+        ("highres", ["highres", f["big"], "-o", str(d / "highres.ply")], (24, 0, 0, 1)),
         ("metric DA-V2-metric-small", ["metric", f["f0"], "-o", str(d / "metric_da.ply"),
-                                       "--model", "depth-anything-v2-metric-small"], (12, 0, 0)),
-        ("metric zoedepth-small", ["metric", f["f0"], "-o", str(d / "metric_zoe.ply")], (0, 0, 0)),
-        ("video", ["video", *frames, "-o", str(d / "video.ply")], (12, 0, 0)),
+                                       "--model", "depth-anything-v2-metric-small"], (12, 0, 0, 0)),
+        ("metric zoedepth-small", ["metric", f["f0"], "-o", str(d / "metric_zoe.ply")],
+         (0, 0, 0, 0)),
+        ("video", ["video", *frames, "-o", str(d / "video.ply")], (12, 0, 0, 1)),
         ("video --voxel", ["video", *frames, "-o", str(d / "video_voxel.ply"), "--voxel", "0.05"],
-         (12, 0, 1)),
-        *[(f"convert {fmt}", ["convert", f["f1"], "-o", str(d / f"cloud.{fmt}")], (12, 1, 1))
+         (12, 0, 1, 1)),
+        *[(f"convert {fmt}", ["convert", f["f1"], "-o", str(d / f"cloud.{fmt}")], (12, 1, 1, 1))
           for fmt in ("ply", "las", "xyz", "pcd", "glb")],
-        ("convert --int8", ["convert", f["f1"], "-o", str(d / "cloud_int8.ply"), "--int8"], (12, 1, 1)),
+        ("convert --int8", ["convert", f["f1"], "-o", str(d / "cloud_int8.ply"), "--int8"],
+         (12, 1, 1, 1)),
     ]
     counts: dict[str, int] = {}
     per_run: dict[str, dict[str, float]] = {}
-    for name, argv, (k1, k2, k3) in runs:
+    for name, argv, (k1, k2, k3, dn) in runs:
         for k in cuda.KERNELS:
             k.reset()
         t0 = time.perf_counter()
@@ -1358,8 +1430,10 @@ def phase_cli(out_dir: str) -> tuple[dict[str, int], dict[str, dict[str, float]]
         eager = f" (eager {EAGER_CLI_WALL_S[name]:.2f} s)" if name in EAGER_CLI_WALL_S else ""
         log(f"cli {name}: rc {rc}, {n} points read back, {time.perf_counter() - t0:.2f} s"
             f"{eager}, launches {got}")
-        if rc != 0 or got != {"flash_attention": k1, "grid_knn": k2, "unproject": k3}:
-            raise AssertionError(f"cli {name}: rc {rc}, launched {got}; expected {(k1, k2, k3)}")
+        if rc != 0 or got != {"flash_attention": k1, "grid_knn": k2, "unproject": k3,
+                              "depthnorm": dn}:
+            raise AssertionError(f"cli {name}: rc {rc}, launched {got}; expected "
+                                 f"{(k1, k2, k3, dn)}")
         for kname, c in got.items():
             counts[kname] = counts.get(kname, 0) + c
             per_run.setdefault(kname, {})[f"cli {name}"] = c
@@ -1439,6 +1513,13 @@ def _png(h: int, w: int, seed: int) -> bytes:
     return encode_png(_frame(h, w, seed))
 
 
+# depthnorm launches (one a normalize call, all of a batch's planes in
+# it) of a 518² forward with its preview: 1 where the model's depth grid
+# is the working size and the preview shares the points' normalize, 2
+# where it is not (DPT-Large's 384²; DA-V2 at a 300x400 or 512² input).
+DEPTHNORM_518 = {"depth-anything-v2": 1, "depth-anything-v2-metric-small": 1,
+                 "dpt-large": 2, "zoedepth": 1}
+
 # The main paths the server drives: (app: the default PNG one, the hybrid
 # JPEG one, or the one over the int8 encoder; model; 518² requests after
 # the cold one; K1 launches per request: one per transformer layer).
@@ -1491,7 +1572,8 @@ def _served_requests(base: str, app: str, model: str, n: int, k1_per_request: in
         f"{statistics.median(lats) * 1e3:.1f} ms over {len(lats)} sequential requests")
     log(f"kernel launches during the {n_requests} served {path} requests: {counts}")
     expected = {"flash_attention": k1_per_request * n_requests, "grid_knn": n_requests,
-                "unproject": n_requests}
+                "unproject": n_requests,
+                "depthnorm": DEPTHNORM_518[model] * n + 2 * len(extra)}
     if counts != expected:
         raise AssertionError(f"the {path} path launched {counts}; expected {expected}")
     return counts
@@ -1597,7 +1679,7 @@ def _graph_signature(pipe, ingest: str, batch: int, seed: int = 0):
             pipe.pack_jpeg_payload(jpegs, scales))
 
 
-def _graph_vs_eager(label: str, pipe, fn, payload: np.ndarray, k1: int) -> dict:
+def _graph_vs_eager(label: str, pipe, fn, payload: np.ndarray, k1: int, dn: int) -> dict:
     """One signature: its capture (timed, with the pool's growth), one
     replay against the eager body on the same payload (bytes; launches),
     each checked."""
@@ -1633,7 +1715,8 @@ def _graph_vs_eager(label: str, pipe, fn, payload: np.ndarray, k1: int) -> dict:
                 f"CPU codec on the graph's depth {torch.equal(sent.cpu(), replay)}, depth rmse "
                 f"vs eager {depth_rmse:.3e} (< {SLICE_RMSE}), preview max diff {prev_diff}")
     b = payload.shape[0]
-    expected = {"flash_attention": k1, "grid_knn": 1, "unproject": 1}
+    expected = {"flash_attention": k1, "grid_knn": 1, "unproject": 1,
+                "depthnorm": dn}
     row = {"batch": b, "capture_s": fn.capture_s, "first_call_s": first_s,
            "pool_bytes": pool, "pool_growth_bytes": pool - pool0,
            "launches_replay": replay_counts, "launches_eager": eager_counts, "equal": same}
@@ -1770,7 +1853,8 @@ def phase_graphs(out_dir: str, models, int8_models, f32_models) -> dict:
         served = managers[kind].get(name)
         pipe = type("Recording", (_Recorded, DepthPipeline), {})(
             served.model, model_target=served.model_target)
-        out[label] = [_graph_vs_eager(label, pipe, *_graph_signature(pipe, ingest, b), k1)
+        out[label] = [_graph_vs_eager(label, pipe, *_graph_signature(pipe, ingest, b), k1,
+                                      DEPTHNORM_518[name])
                       for b in GRAPH_BUCKETS]
         del pipe  # its graphs and pool
         gc.collect()
@@ -1824,11 +1908,11 @@ def _in_turns(modes: dict, rounds: int = 3) -> dict:
 
 
 def _signature_vs_eager(label: str, owner, fn, first: tuple, second: tuple, k1: int, k3: int,
-                        varies: bool) -> dict:
+                        varies: bool, dn: int = 0) -> dict:
     """One signature's graph: the capture (timed, the pool's growth), a
     replay against the eager body on the same inputs, byte for byte, and
     at a second value of its traced inputs; the launches of a replay (the
-    eager body's, and ``k1``/0/``k3``); graph and eager walls in turns and
+    eager body's, and ``k1``/0/``k3``/``dn``); graph and eager walls in turns and
     their device time a call."""
     dev = owner.device
     pool0 = owner.graph_pool_bytes()
@@ -1849,7 +1933,7 @@ def _signature_vs_eager(label: str, owner, fn, first: tuple, second: tuple, k1: 
     out2, eout2 = fn(*second), fn.run(*_on_device(second, dev))
     torch.cuda.synchronize()
     same, same2, moved = _same(out, eout), _same(out2, eout2), not _same(out, out2)
-    expected = {"flash_attention": k1, "grid_knn": 0, "unproject": k3}
+    expected = {"flash_attention": k1, "grid_knn": 0, "unproject": k3, "depthnorm": dn}
     modes = {"graph": lambda: fn(*first), "eager": lambda: fn.run(*_on_device(first, dev))}
     wall = _in_turns(modes)
     device = {m: _profiled_ms(call) for m, call in modes.items()}
@@ -1942,9 +2026,10 @@ def _voxel_vs_eager(label: str, pipe, pts: torch.Tensor, cols: torch.Tensor, vox
     return row
 
 
-def _user_run(label: str, call, k1: int, k3: int, counts: dict, per_run: dict) -> float:
+def _user_run(label: str, call, k1: int, k3: int, counts: dict, per_run: dict,
+              dn: int = 0) -> float:
     """One call of a pipeline's public entry point, read on its own: its
-    K1/K2/K3 launches (one replay a signature) and wall."""
+    K1/K2/K3/depthnorm launches (one replay a signature) and wall."""
     _reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1954,9 +2039,9 @@ def _user_run(label: str, call, k1: int, k3: int, counts: dict, per_run: dict) -
     pts = out[0] if isinstance(out, tuple) else out
     log(f"{label}: {wall * 1e3:.1f} ms, launches {got}, output {np.shape(pts)}, finite "
         f"{bool(np.isfinite(pts).all())}")
-    if got != {"flash_attention": k1, "grid_knn": 0, "unproject": k3} or not (
+    if got != {"flash_attention": k1, "grid_knn": 0, "unproject": k3, "depthnorm": dn} or not (
             np.size(pts) and np.isfinite(pts).all()):
-        raise AssertionError(f"{label}: launched {got}, expected ({k1}, 0, {k3})")
+        raise AssertionError(f"{label}: launched {got}, expected ({k1}, 0, {k3}, {dn})")
     for name, c in got.items():
         counts[name] = counts.get(name, 0) + c
         per_run.setdefault(name, {})[label] = c
@@ -2026,15 +2111,15 @@ def phase_advanced_graphs(models) -> tuple[dict, dict, dict]:
     pipe = advanced.HighResPipeline(da, quantized_transfer=True)
     rows["highres grid"] = _signature_vs_eager("highres 1024² grid", pipe,
                                                pipe._fn(1024, 1024, 1, True), (big, s1), (big, s2),
-                                               24, 0, varies=False)
+                                               24, 0, varies=False, dn=1)
     rows["highres grid"]["run_s"] = _user_run("highres 1024² run (depth grid, native voxel)",
-                                              lambda: pipe.run(big), 24, 0, counts, per_run)
+                                              lambda: pipe.run(big), 24, 0, counts, per_run, dn=1)
     del pipe
     _release()
     pipe = advanced.HighResPipeline(da, quantized_transfer=False)
     fn = pipe._fn(1024, 1024, 1, False)
     rows["highres device"] = _signature_vs_eager("highres 1024² device", pipe, fn, (big, s1),
-                                                 (big, s2), 24, 1, varies=True)
+                                                 (big, s2), 24, 1, varies=True, dn=1)
     packed, bbox = fn(big, s1)
     lo, hi = bbox.cpu().numpy()
     voxel = (float(np.prod(np.maximum(hi - lo, 1e-6))) / 1_000_000) ** (1.0 / 3.0)
@@ -2042,7 +2127,7 @@ def phase_advanced_graphs(models) -> tuple[dict, dict, dict]:
                                                       packed[:3].T, packed[3:6].T, voxel)
     rows["highres device"]["run_s"] = _user_run(
         "highres 1024² run (device voxel, budget 1M)",
-        lambda: pipe.run(big, voxel_budget=1_000_000), 24, 1, counts, per_run)
+        lambda: pipe.run(big, voxel_budget=1_000_000), 24, 1, counts, per_run, dn=1)
     del pipe, fn, packed, bbox
     _release()
 
@@ -2050,19 +2135,19 @@ def phase_advanced_graphs(models) -> tuple[dict, dict, dict]:
     pipe = advanced.VideoPipeline(da)
     rows["video quantized"] = _signature_vs_eager(
         "video 30x518² quantized", pipe, pipe._fn(30, 518, 518, 2, True), (clip, s1), (clip, s2),
-        12, 0, varies=False)
+        12, 0, varies=False, dn=1)
     rows["video quantized"]["run_s"] = _user_run("video 30x518² run", lambda: pipe.run(clip),
-                                                 12, 0, counts, per_run)
+                                                 12, 0, counts, per_run, dn=1)
     fn = pipe._fn(30, 518, 518, 2)
     rows["video voxel"] = _signature_vs_eager("video 30x518² unfused", pipe, fn, (clip, s1),
-                                              (clip, s2), 12, 1, varies=True)
+                                              (clip, s2), 12, 1, varies=True, dn=1)
     packed = fn(clip, s1)
     pts = packed[:, :3, :].transpose(1, 2).reshape(-1, 3)
     cols = packed[:, 3:6, :].transpose(1, 2).reshape(-1, 3)
     rows["video voxel"]["voxel"] = _voxel_vs_eager("video 30x518²", pipe, pts, cols, 0.05)
     rows["video voxel"]["run_s"] = _user_run("video 30x518² run --voxel 0.05",
                                              lambda: pipe.run(clip, fuse_voxel=0.05), 12, 1,
-                                             counts, per_run)
+                                             counts, per_run, dn=1)
     del pipe, fn, packed, pts, cols
     _release()
 
@@ -2357,7 +2442,8 @@ def _v2_generation(base: str, fields: dict, seed: int) -> tuple[float, dict, dic
 def phase_v2(out_dir: str, models) -> dict[str, int]:
     """The v2 server on the card at full width (DA-V2-Small, random init):
     each generation read on its own (the launch counters zeroed just before
-    and read just after) and held to 12 K1, 1 K2 and 1 K3; the p50 of the
+    and read just after) and held to 12 K1, 1 K2, 1 K3 and 2 depthnorm
+    (the 512² conditioning image's preview is not shared); the p50 of the
     timed generations with each stage's median and the metadata's
     ``generation_time``."""
     from image_to_pointcloud_tpu_torch import cuda
@@ -2375,7 +2461,7 @@ def phase_v2(out_dir: str, models) -> dict[str, int]:
             launches = {k.name: k.launches for k in cuda.KERNELS}
             log(f"v2 generation #{i} {f}: {lat * 1e3:.1f} ms to the downloads, {got}, "
                 f"launches {launches}, stages {clock.times[-1]}")
-            if launches != {"flash_attention": 12, "grid_knn": 1, "unproject": 1}:
+            if launches != {"flash_attention": 12, "grid_knn": 1, "unproject": 1, "depthnorm": 2}:
                 raise AssertionError(f"v2 generation #{i} launched {launches}")
             for name, c in launches.items():
                 counts[name] = counts.get(name, 0) + c
@@ -2399,7 +2485,7 @@ def phase_matte(models) -> dict[str, int]:
     ``SEGFORMER_TOL``; then a random-init full-width SegFormer-B0
     ``MatteModel`` at 512², card against CPU (TF32 off), timed on the card
     as served (torch's TF32 defaults), and inside a ``Depth3DProcessor``
-    whose ``generate`` runs on the card (12/1/1 launches)."""
+    whose ``generate`` runs on the card (12/1/1/2 launches)."""
     from pathlib import Path
 
     from image_to_pointcloud_tpu_torch import cuda
@@ -2470,7 +2556,7 @@ def phase_matte(models) -> dict[str, int]:
     log(f"Depth3DProcessor with the learned matte on the card: "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms, {verts} vertices, {faces} faces, "
         f"launches {launches}")
-    if launches != {"flash_attention": 12, "grid_knn": 1, "unproject": 1} or (
+    if launches != {"flash_attention": 12, "grid_knn": 1, "unproject": 1, "depthnorm": 2} or (
             verts, faces) != (out["metadata"]["vertex_count"], out["metadata"]["face_count"]):
         raise AssertionError("the processor with the learned matte on the card misbehaved")
     return launches
@@ -2845,7 +2931,8 @@ def phase_train(out_dir: str, models) -> dict:
         f"(random init: {len(z_init)} points, {len(np.unique(z_init))} distinct z in "
         f"[{z_init.min():.4g}, {z_init.max():.4g}]), differs {differs}, launches {served}")
     if tuned.random_weights.get(TRAIN_MODEL) is not False or not differs or served != {
-            "flash_attention": 12, "grid_knn": 1, "unproject": 1}:
+            "flash_attention": 12, "grid_knn": 1, "unproject": 1,
+            "depthnorm": DEPTHNORM_518[TRAIN_MODEL]}:
         raise AssertionError("the fine-tuned checkpoint was not served")
 
     _trainer_card_vs_cpu()
@@ -3004,7 +3091,8 @@ def _mesh_tp(models, name: str, k1_blocks: int) -> dict:
     _reset()
     raw_tp, res_tp = _raw_run(tp, [frame])
     counts = _counts()
-    expected = {"flash_attention": 2 * k1_blocks, "grid_knn": 1, "unproject": 1}
+    expected = {"flash_attention": 2 * k1_blocks, "grid_knn": 1, "unproject": 1,
+                "depthnorm": DEPTHNORM_518[name]}
     graph = _mesh_graph(f"TP {name} (data=1, model=2)", tp, [frame], expected)
     err = _max_norm_err(raw_tp, raw_plain)
     gap = float((normalize_depth(raw_tp[0]) - normalize_depth(raw_plain[0])).abs().max())
@@ -3085,7 +3173,7 @@ def _mesh_int8(int8_models) -> dict:
     tp = DepthPipeline(served.model, model_target=served.model_target, mesh=mesh)
     frame = _frame(518, 518, 6)
     graph = _mesh_graph("int8 TP DA-V2 (data=1, model=2)", tp, [frame],
-                        {"flash_attention": 24, "grid_knn": 1, "unproject": 1})
+                        {"flash_attention": 24, "grid_knn": 1, "unproject": 1, "depthnorm": 1})
     payload = tp.pack_payload(frame[None], np.full((1,), 15.0, np.float32))
     opts = PipelineOptions()
     got = tp.compiled_graph(1, (518, 518), opts, True)(payload)
@@ -3114,7 +3202,8 @@ def _mesh_dp(models) -> dict:
     worst, out, graphs = 0.0, {}, {}
     for n, groups in [(1, [[0]]), (3, [[0, 1], [2, 2]])]:
         graphs[n] = _mesh_graph(f"DP DA-V2 (data=2) of {n}", dp, frames[:n],
-                                {"flash_attention": 24, "grid_knn": 2, "unproject": 2})
+                                {"flash_attention": 24, "grid_knn": 2, "unproject": 2,
+                                 "depthnorm": 2})
         _reset()
         got = dp.run_batch(np.stack(frames[:n]), depth_scales=15.0)
         counts = _counts()
@@ -3126,7 +3215,7 @@ def _mesh_dp(models) -> dict:
             worst = max(worst, float(np.abs(a.points - b.points).max()))
         out[n] = counts
         log(f"mesh DP (data=2) batch {n}: {len(got)} results, launches {counts}")
-        if counts != {"flash_attention": 24, "grid_knn": 2, "unproject": 2}:
+        if counts != {"flash_attention": 24, "grid_knn": 2, "unproject": 2, "depthnorm": 2}:
             raise AssertionError(f"the DP path launched {counts}")
     ms_dp = _host_ms(lambda: dp.run(frames[0]))
     ms_plain = _host_ms(lambda: plain.run(frames[0]))
@@ -3170,7 +3259,8 @@ def _mesh_gpipe(models) -> dict:
         if err > FULL_WIDTH_TOL or counts["flash_attention"] != 4 * k1 or counts["unproject"] != 1:
             raise AssertionError(f"the GPipe path of {name} failed")
         graph = _mesh_graph(f"GPipe {name} (pipe=4, M=4)", pp, frames,
-                            {"flash_attention": 4 * k1, "grid_knn": 1, "unproject": 1})
+                            {"flash_attention": 4 * k1, "grid_knn": 1, "unproject": 1,
+                             "depthnorm": DEPTHNORM_518[name]})
         out[name] = {"err": err, "launches": graph["launches_replay"], "batch_ms": wall,
                      "graph": graph}
     import dataclasses
@@ -3439,8 +3529,8 @@ def _mesh_server(out_dir: str) -> dict:
         child.stderr.close()
     one_slot = _mesh_served("serve --mesh data=1,model=1 (in process)",
                             ModelManager("cuda", mesh=make_mesh(data=1, model=1, devices=_slots(1))),
-                            {"flash_attention": 12, "grid_knn": 1, "unproject": 1})
-    expected = {"flash_attention": 48, "grid_knn": 2, "unproject": 2}
+                            {"flash_attention": 12, "grid_knn": 1, "unproject": 1, "depthnorm": 1})
+    expected = {"flash_attention": 48, "grid_knn": 2, "unproject": 2, "depthnorm": 2}
     meshed = ModelManager("cuda", mesh=make_mesh(data=2, model=2, devices=_slots(4)))
     served = _mesh_served("server (data=2, model=2)", meshed, expected)
     srv = _Server(out_dir, meshed)
@@ -3528,6 +3618,7 @@ def main() -> int:
     k1 = timed(phase_k1)
     k2 = timed(phase_k2)
     k3 = timed(phase_k3)
+    dn = timed(phase_depthnorm)
     timed(phase_codecs)
     timed(phase_jpeg_decode)
     timed(phase_slice)
@@ -3593,6 +3684,10 @@ def main() -> int:
          "source": "image_to_pointcloud_tpu_torch/csrc/unproject.cu",
          "replaces": "image_to_pointcloud_tpu/ops/unproject.py:208",
          "launches": counts["unproject"], "launches_per_request": per_request["unproject"], **k3},
+        {"name": "depthnorm", "route": "cuda",
+         "source": "image_to_pointcloud_tpu_torch/csrc/depthnorm.cu",
+         "replaces": "none (stands for image_to_pointcloud_tpu/ops/depthnorm.py order_statistics)",
+         "launches": counts["depthnorm"], "launches_per_request": per_request["depthnorm"], **dn},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

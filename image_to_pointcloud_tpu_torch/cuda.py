@@ -31,6 +31,7 @@ from pathlib import Path
 
 __all__ = [
     "BUILD_DIR",
+    "DEPTHNORM",
     "FLASH_ATTENTION",
     "GRID_KNN",
     "KERNELS",
@@ -44,7 +45,7 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("flash_attention.cu", "grid_knn.cu", "unproject.cu", "error.cu")
+SOURCES = ("flash_attention.cu", "grid_knn.cu", "unproject.cu", "depthnorm.cu", "error.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -104,7 +105,9 @@ def replayed(record: dict) -> None:
 FLASH_ATTENTION = Kernel("flash_attention")
 GRID_KNN = Kernel("grid_knn")
 UNPROJECT = Kernel("unproject")
-KERNELS = (FLASH_ATTENTION, GRID_KNN, UNPROJECT)
+# One count a call: its four histogram launches and its elementwise one.
+DEPTHNORM = Kernel("depthnorm")
+KERNELS = (FLASH_ATTENTION, GRID_KNN, UNPROJECT, DEPTHNORM)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -172,6 +175,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, i, p, p, i, i, i, i, f, f, f, ll, ll, ll, ll, ll, ll, ll, p,
     ]
     lib.ipc_unproject.restype = i
+    lib.ipc_depthnorm_scratch_bytes.argtypes = [i]
+    lib.ipc_depthnorm_scratch_bytes.restype = ll
+    lib.ipc_depthnorm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, f, f, i, p]
+    lib.ipc_depthnorm.restype = i
     lib.ipc_cuda_error_string.argtypes = [i]
     lib.ipc_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -50,7 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth
+from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth, normalize_depth_planes
 from image_to_pointcloud_tpu_torch.ops.resize import resize_planes
 from image_to_pointcloud_tpu_torch.ops.unproject import (
     focal_length,
@@ -450,7 +450,7 @@ class VideoPipeline(_ModelPipeline):
         t, h, w = frames_u8.shape[:3]
         img = frames_u8.float()
         d = resize_planes(self._predict(img, (h, w)), (h, w), "linear")
-        dn = torch.stack([normalize_depth(dd, True) for dd in d])
+        dn = normalize_depth_planes(d, True)
         if quant:
             return _pack_depth(dn[:, ::step, ::step], self.depth_bits)  # (T, L) u8
         return unproject(dn, img, depth_scale=depth_scale, step=step, h=h, w=w)  # (T, 8, N)

@@ -80,7 +80,7 @@ from torch import nn
 
 from image_to_pointcloud_tpu_torch import cuda
 from image_to_pointcloud_tpu_torch.ops.colormap import PLASMA_RGB, apply_colormap
-from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth
+from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth_planes
 from image_to_pointcloud_tpu_torch.ops.gaussian import gaussian_blur
 from image_to_pointcloud_tpu_torch.ops.jpeg import (
     JpegSpec,
@@ -234,10 +234,6 @@ def _proc_hw(h: int, w: int) -> tuple[int, int]:
 def _smooth_ksize(ksize: int) -> int:
     """Reference odd-kernel clamp (backend/app.py:210-212)."""
     return max(3, int(ksize) // 2 * 2 + 1)
-
-
-def _normalize_each(depth: torch.Tensor, invert: bool) -> torch.Tensor:
-    return torch.stack([normalize_depth(d, invert) for d in depth])
 
 
 def _view(payload: torch.Tensor, off: int, size: int, dtype: torch.dtype) -> torch.Tensor:
@@ -447,7 +443,7 @@ def plan_sparse_batch(jpegs: "list[JpegInput]") -> "tuple[int, int] | None":
 def _points_depth(depth: torch.Tensor, h: int, w: int, opts: PipelineOptions) -> torch.Tensor:
     """(B, mh, mw) model depth → the (B, h, w) normalized, optionally
     blurred depth the points are made of."""
-    dn = _normalize_each(resize_planes(depth, (h, w), "linear"), opts.invert_depth)
+    dn = normalize_depth_planes(resize_planes(depth, (h, w), "linear"), opts.invert_depth)
     if opts.smooth_depth:
         dn = gaussian_blur(dn, _smooth_ksize(opts.smooth_ksize))
     return dn
@@ -1054,7 +1050,7 @@ class DepthPipeline(_GraphOwner):
             if (dmh, dmw) == (h, w) and not opts.smooth_depth:
                 dn_prev = dn_all
             else:
-                dn_prev = _normalize_each(depth, opts.invert_depth)
+                dn_prev = normalize_depth_planes(depth, opts.invert_depth)
             prev = (dn_prev * 255.0).to(torch.uint8)
             if (pv_h, pv_w) != (dmh, dmw):
                 rgb = resize_batched(apply_colormap(prev).float(), (pv_h, pv_w), "area")

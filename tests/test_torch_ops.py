@@ -35,6 +35,7 @@ from image_to_pointcloud_tpu_torch.ops.outlier import (
     grid_knn_mean_distances_plain,
     outlier_keep_from_means,
 )
+from torch_depth_cases import NORMALIZE_CASES, depth_planes
 
 
 def _t(x: np.ndarray) -> torch.Tensor:
@@ -189,21 +190,32 @@ def test_outlier_keep_matches_jax(rng):
 # ---------- exact ops ----------
 
 
+@pytest.mark.parametrize("case", NORMALIZE_CASES)
 @pytest.mark.parametrize("shape", [(37, 45), (64, 80)])
 @pytest.mark.parametrize("invert", [True, False])
-def test_normalize_depth_bit_exact(rng, shape, invert):
+def test_normalize_depth_bit_exact(rng, case, shape, invert):
+    """The batched plain version (and ``normalize_depth`` on one plane)
+    equals the JAX package plane by plane, bit for bit: -0.0 below +0.0
+    in the ranks and the clip, as the JAX package's total order has it."""
     from image_to_pointcloud_tpu.ops.depthnorm import normalize_depth as jnorm
-    from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth
+    from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth, normalize_depth_planes
 
-    x = (rng.normal(size=shape) * 3 + 1).astype(np.float32)
-    x[0, 0], x[1, 1], x[2, 2] = np.nan, np.inf, -np.inf
-    np.testing.assert_array_equal(
-        normalize_depth(_t(x), invert).numpy(), np.asarray(jnorm(x, invert))
-    )
-    const = np.full(shape, 2.0, np.float32)
-    np.testing.assert_array_equal(
-        normalize_depth(_t(const), invert).numpy(), np.asarray(jnorm(const, invert))
-    )
+    planes = depth_planes(rng, case, shape)
+    ours = normalize_depth_planes(_t(planes), invert).numpy()
+    assert ours.shape == planes.shape and ours.dtype == np.float32
+    for b, plane in enumerate(planes):
+        ref = np.asarray(jnorm(plane, invert))
+        np.testing.assert_array_equal(ours[b].view(np.uint32), ref.view(np.uint32))
+    if len(planes) == 1:
+        np.testing.assert_array_equal(normalize_depth(_t(planes[0]), invert).numpy().view(np.uint32),
+                                      ours[0].view(np.uint32))
+
+
+def test_normalize_depth_cuda_refuses_cpu_tensors():
+    from image_to_pointcloud_tpu_torch.ops.depthnorm import normalize_depth_cuda
+
+    with pytest.raises(ValueError, match="CUDA"):
+        normalize_depth_cuda(torch.zeros(2, 16))
 
 
 @pytest.mark.parametrize("step", [1, 2, 4])
